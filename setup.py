@@ -7,7 +7,8 @@ setup(
                  "generative models (BasinCMA / CMA-ES / Adam hybrid "
                  "optimization, transform search, BigGAN + StyleGAN2)"),
     packages=find_packages(exclude=("tests", "examples")),
-    package_data={"pix2latent_tpu": ["utils/data/*.json.gz"]},
+    package_data={"pix2latent_tpu": ["utils/data/*.json.gz"],
+                  "pix2latent_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
     python_requires=">=3.10",
     install_requires=[
         "jax",
