@@ -2,20 +2,32 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--generations G] [--final-steps F]
+                          [--sg2-generations G] [--sg2-final-steps F]
 
 Phases, one JSON line each; any failure raises and exits non-zero:
 
 1. ``env``: torch and CUDA versions, the card's name and power limit.
 2. ``build``: every CUDA source under ``pix2latent_tpu_torch/csrc`` built
    with one ``nvcc`` each, all started together.
-3. ``kernels``: the SA-GAN attention kernel, forward and backward, against
-   its plain PyTorch version on the card, in float32 and bfloat16, at the
-   BigGAN-deep-256 shape the main path gives it and at a small ragged shape,
-   with the tolerances of ``tests/test_attention.py``. Times (CUDA events,
-   median of 25 runs) of the kernel, the plain version and one PyTorch call
-   computing the same function (``scaled_dot_product_attention`` with
-   ``scale=1.0``, timed here only and never called by the port), beside the
-   least time the card could take.
+3. ``kernels``: every hand-written kernel against its plain PyTorch version
+   on the card, in float32 and bfloat16, at the largest shape its path gives
+   it and at a small ragged shape:
+   - the SA-GAN attention (K1), forward and backward, at the
+     BigGAN-deep-256 shape, with the tolerances of ``tests/test_attention.py``;
+   - the separable FIR blur (K2), forward and backward, at [22, 64, 513, 513]
+     with pad (1, 1), with the float32 tolerances of
+     ``tests/test_pallas_fir.py`` (atol 1e-5 output, 1e-4 gradient) and, in
+     bfloat16, one bf16 rounding step (rtol 2^-7, atol 1e-5): kernel and
+     plain version both round one f32 sum once, and the sums differ only in
+     the order of the f32 operations;
+   - the fused modulation backward (K3) at [22, 64, 512, 512], with the
+     tolerances of ``tests/test_mod_backward.py``.
+   Times (CUDA events, median of 25 runs) of the kernel, the plain version
+   and, where one PyTorch call computes the same function, that call
+   (``scaled_dot_product_attention`` with ``scale=1.0`` for K1, one
+   depthwise ``F.conv2d`` with the 4x4 outer-product kernel for K2; none
+   for K3), timed here only and never called by the port, beside the least
+   time the card could take.
 4. ``main_path``: BasinCMA inversion of the ``bench.py`` ramp target through
    BigGAN-deep-256 at full width (channel width 128) in bfloat16, under
    ProjectionLoss (masked L1 + 10 x LPIPS-alex), population 18, 30 inner
@@ -24,6 +36,15 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    one forward per inner step and per tell, one backward per inner step.
 5. ``whole_step``: one float32 forward and backward of generator + loss at
    population 2 and full width, on the card against the CPU.
+6. ``sg2_path``: BasinCMA inversion of the 512x512 ramp through StyleGAN2
+   LSUN-Cars (config-f, channel multiplier 2, full width) in bfloat16 under
+   ProjectionLoss with the cars border mask, population 22, 30 inner Adam
+   steps per generation, z searched with the Normalize + NormalPerturb(0.05)
+   hook, random weights from a seed, both StyleGAN2 kernels on. The launch
+   counters are set to 0 just before and read just after: 7 blurs per
+   forward (inner steps, tells and final steps) and per backward, 23
+   modulation backwards per backward.
+7. ``sg2_whole_step``: as ``whole_step``, for the StyleGAN2 problem.
 
 Then the ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line and the
 result line. It exits non-zero, printing no result, without a CUDA device or
@@ -50,6 +71,19 @@ RAGGED = (3, 100, 37, 5, 20)
 # (atol = rtol) for the output and for the gradients, tests/test_attention.py
 TOL = {"float32": (1e-5, 2e-4), "bfloat16": (2e-2, 5e-2)}
 POP, GRAD_STEPS = 18, 30
+SG2_POP = 22
+
+FIR_TAPS = (0.25, 0.75, 0.75, 0.25)    # [1, 3, 3, 1] / 8 * sqrt(4)
+FIR_PATH = ((22, 64, 513, 513), (1, 1))
+FIR_RAGGED = ((3, 5, 37, 41), (2, 1))
+# (rtol, atol) of the output and of the gradient
+FIR_TOL = {"float32": ((0.0, 1e-5), (0.0, 1e-4)),
+           "bfloat16": ((2.0 ** -7, 1e-5), (2.0 ** -7, 1e-5))}
+MOD_PATH = (22, 64, 512, 512)
+MOD_RAGGED = (3, 5, 7, 9)
+# (rtol, atol) of g_x and of g_s, tests/test_mod_backward.py
+MOD_TOL = {"float32": ((1e-6, 0.0), (5e-5, 1e-5)),
+           "bfloat16": ((2e-2, 1e-2), (2e-2, 1e-2))}
 
 
 def emit(obj):
@@ -80,11 +114,21 @@ def cuda_ms(fn, reps=25, warmup=3):
     return statistics.median(times)
 
 
-def max_err_within(a, b, tol):
-    """(max |a - b|, whether |a - b| <= tol + tol * |b| everywhere)."""
+def max_err_within(a, b, tol, atol=None):
+    """(max |a - b|, whether |a - b| <= atol + tol * |b| everywhere); atol
+    defaults to tol."""
     a, b = a.detach().float(), b.detach().float()
     diff = (a - b).abs()
-    return float(diff.max()), bool((diff <= tol + tol * b.abs()).all())
+    atol = tol if atol is None else atol
+    return float(diff.max()), bool((diff <= atol + tol * b.abs()).all())
+
+
+def bound(bytes_moved, ops, dtype_name):
+    """(least ms, what bounds it): bytes over the memory rate against
+    operations over the peak rate for the type."""
+    t_bytes, t_ops = bytes_moved / PEAK_BYTES, ops / PEAK_FLOPS[dtype_name]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
+                                       else "operations")
 
 
 def phase_env():
@@ -130,7 +174,8 @@ def _attention_case(shape, dtype, timed):
     tol_o, tol_g = TOL[name]
     err_o, ok_o = max_err_within(out_k, out_r, tol_o)
     errs_g = [max_err_within(a, b, tol_g) for a, b in zip(grads_k, grads_r)]
-    case = {"shape": list(shape), "dtype": name, "tol_out": tol_o,
+    case = {"kernel": "sagan_attention", "shape": list(shape), "dtype": name,
+            "tol_out": tol_o,
             "tol_grad": tol_g, "fwd_max_abs_err": err_o,
             "bwd_max_abs_err": max(e for e, _ in errs_g),
             "ok": ok_o and all(ok for _, ok in errs_g)}
@@ -164,11 +209,115 @@ def _attention_case(shape, dtype, timed):
     ops_fwd = 2 * n * q * k * (d + dv)
     ops_bwd = 2 * n * q * k * (3 * d + 2 * dv)
     for key, b, f in (("fwd", bytes_fwd, ops_fwd), ("bwd", bytes_bwd, ops_bwd)):
-        t_bytes, t_ops = b / PEAK_BYTES, f / PEAK_FLOPS[name]
-        case[f"{key}_bound_ms"] = 1e3 * max(t_bytes, t_ops)
-        case[f"{key}_bound_by"] = "bytes" if t_bytes > t_ops else "operations"
+        case[f"{key}_bound_ms"], case[f"{key}_bound_by"] = bound(b, f, name)
         case[f"{key}_bytes"], case[f"{key}_ops"] = b, f
     del o
+    return case
+
+
+def _randn(gen, shape, dtype):
+    import torch
+    return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+
+def _fir_case(shape, pad, dtype, timed):
+    import torch
+    import torch.nn.functional as F
+    from pix2latent_tpu_torch.ops import fir_blur as FB
+
+    n, c, h, w = shape
+    k = len(FIR_TAPS)
+    ho, wo = h + sum(pad) - k + 1, w + sum(pad) - k + 1
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    x = _randn(gen, (n, c, h, w), dtype)
+    cot = _randn(gen, (n, c, ho, wo), dtype)
+    taps = tuple(float(t) for t in FIR_TAPS)
+
+    x_k = x.clone().requires_grad_(True)
+    y_k = FB.fir_blur(x_k, taps, pad)
+    (dx_k,) = torch.autograd.grad(y_k, x_k, cot)
+    x_r = x.clone().requires_grad_(True)
+    y_r = FB.fir_blur_reference(x_r, taps, pad)
+    (dx_r,) = torch.autograd.grad(y_r, x_r, cot)
+    torch.cuda.synchronize()
+
+    name = str(dtype).replace("torch.", "")
+    (rt_o, at_o), (rt_g, at_g) = FIR_TOL[name]
+    err_o, ok_o = max_err_within(y_k, y_r, rt_o, at_o)
+    err_g, ok_g = max_err_within(dx_k, dx_r, rt_g, at_g)
+    case = {"kernel": "fir_blur", "shape": list(shape), "pad": list(pad),
+            "dtype": name, "tol_out": [rt_o, at_o], "tol_grad": [rt_g, at_g],
+            "fwd_max_abs_err": err_o, "bwd_max_abs_err": err_g,
+            "ok": ok_o and ok_g and y_k.dtype == dtype and dx_k.dtype == dtype}
+    if not timed:
+        return case
+
+    adj_taps, adj_pad = FB.adjoint(taps, pad)
+    case["fwd_ms"] = cuda_ms(lambda: FB.kernel_forward(x, taps, pad))
+    case["bwd_ms"] = cuda_ms(lambda: FB.kernel_backward(cot, taps, pad))
+    case["plain_fwd_ms"] = cuda_ms(lambda: FB.fir_blur_reference(x, taps, pad))
+    case["plain_bwd_ms"] = cuda_ms(
+        lambda: FB.fir_blur_reference(cot, adj_taps, adj_pad))
+    # the library call: one depthwise conv with the 4x4 outer product (both
+    # pads here are symmetric, so the conv pads)
+    k2 = torch.outer(torch.tensor(taps), torch.tensor(taps)).to(
+        device="cuda", dtype=dtype)
+    weight = k2[None, None].repeat(c, 1, 1, 1)
+    assert pad[0] == pad[1] and adj_pad[0] == adj_pad[1]
+    case["library_fwd_ms"] = cuda_ms(
+        lambda: F.conv2d(x, weight, padding=pad[0], groups=c))
+    case["library_bwd_ms"] = cuda_ms(
+        lambda: F.conv2d(cot, weight.flip(2, 3), padding=adj_pad[0],
+                         groups=c))
+
+    # each input read once, each output written once; 2 FLOPs per tap in
+    # the column pass over the padded width and in the row pass
+    size = 2 if dtype == torch.bfloat16 else 4
+    bytes_ = size * n * c * (h * w + ho * wo)
+    for key, rows, w_in, w_out, p in (("fwd", ho, w, wo, pad),
+                                      ("bwd", h, wo, w, adj_pad)):
+        ops = 2 * k * n * c * rows * (w_in + sum(p) + w_out)
+        case[f"{key}_bound_ms"], case[f"{key}_bound_by"] = bound(bytes_, ops,
+                                                                 name)
+        case[f"{key}_bytes"], case[f"{key}_ops"] = bytes_, ops
+    return case
+
+
+def _mod_case(shape, dtype, timed):
+    import torch
+    from pix2latent_tpu_torch.ops import mod_backward as MB
+
+    n, c, h, w = shape
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    g = _randn(gen, (n, c, h, w), dtype)
+    x = _randn(gen, (n, c, h, w), dtype)
+    s = (torch.rand((n, c), generator=gen, device="cuda") + 0.5).to(dtype)
+    gx_k, gs_k = MB.fused_mod_backward(g, x, s)
+    gx_r, gs_r = MB.mod_backward_reference(g, x, s)
+    torch.cuda.synchronize()
+
+    name = str(dtype).replace("torch.", "")
+    (rt_x, at_x), (rt_s, at_s) = MOD_TOL[name]
+    err_x, ok_x = max_err_within(gx_k, gx_r, rt_x, at_x)
+    err_s, ok_s = max_err_within(gs_k, gs_r, rt_s, at_s)
+    case = {"kernel": "mod_backward", "shape": list(shape), "dtype": name,
+            "tol_gx": [rt_x, at_x], "tol_gs": [rt_s, at_s],
+            "gx_max_abs_err": err_x, "gs_max_abs_err": err_s,
+            "max_abs_err": max(err_x, err_s),
+            "ok": (ok_x and ok_s and gx_k.dtype == dtype
+                   and gs_k.dtype == torch.float32)}
+    if not timed:
+        return case
+    case["ms"] = cuda_ms(lambda: MB.kernel_mod_backward(g, x, s))
+    case["plain_ms"] = cuda_ms(lambda: MB.mod_backward_reference(g, x, s))
+    case["library_ms"] = None     # no single PyTorch call computes both
+    size = 2 if dtype == torch.bfloat16 else 4
+    bytes_ = 3 * n * c * h * w * size + n * c * (size + 4)
+    ops = 3 * n * c * h * w
+    case["bound_ms"], case["bound_by"] = bound(bytes_, ops, name)
+    case["bytes"], case["ops"] = bytes_, ops
     return case
 
 
@@ -179,8 +328,15 @@ def phase_kernels():
         cases.append(_attention_case(FLAGSHIP, dtype, timed=True))
         cases.append(_attention_case(RAGGED, dtype, timed=False))
         torch.cuda.empty_cache()
+        cases.append(_fir_case(*FIR_PATH, dtype, timed=True))
+        cases.append(_fir_case(*FIR_RAGGED, dtype, timed=False))
+        torch.cuda.empty_cache()
+        cases.append(_mod_case(MOD_PATH, dtype, timed=True))
+        cases.append(_mod_case(MOD_RAGGED, dtype, timed=False))
+        torch.cuda.empty_cache()
     emit({"phase": "kernels",
-          "kernels": ["sagan_attention_fwd", "sagan_attention_bwd"],
+          "kernels": ["sagan_attention_fwd", "sagan_attention_bwd",
+                      "fir_blur_fwd", "fir_blur_bwd", "mod_backward"],
           "cases": cases})
     bad = [c for c in cases if not c["ok"]]
     if bad:
@@ -241,45 +397,129 @@ def phase_main_path(generations, final_steps):
     return counts
 
 
-def phase_whole_step():
+def _whole_step(phase, builder, inputs):
+    """One float32 generator + loss forward and backward at population 2,
+    on the card and on the CPU: relative errors of the per-sample losses
+    and of the input gradients must be <= 1e-3."""
     import torch
     from pix2latent_tpu_torch.core.step import ExecutionCore
-    from pix2latent_tpu_torch.utils.flagship import build
 
     def step(device):
-        model, loss_fn, vm = build(torch.float32, device)
+        model, loss_fn, vm = builder(torch.float32, device)
         core = ExecutionCore(model, vm, loss_fn)
-        gen = torch.Generator(device="cpu")
-        gen.manual_seed(1)
-        z = torch.fmod(torch.randn(2, 128, generator=gen), 2.0)
-        c = 0.1 * torch.randn(2, 128, generator=gen)
         variables = vm.initialize(2)
-        variables["input"] = {"z": z.to(device).requires_grad_(True),
-                              "c": c.to(device).requires_grad_(True)}
+        variables["input"] = {name: t.to(device).requires_grad_(True)
+                              for name, t in inputs.items()}
         variables = core._dedupe_outputs(variables)
         loss, per_sample, out = core._forward_loss(variables,
                                                    core.make_ctx(variables))
         loss.backward()
-        return (per_sample.detach().cpu().double(),
-                variables["input"]["z"].grad.cpu().double(),
-                variables["input"]["c"].grad.cpu().double())
+        return [per_sample.detach().cpu().double()] + [
+            variables["input"][name].grad.cpu().double() for name in inputs]
 
     tol = 1e-3
     card, cpu = step("cuda"), step("cpu")
+    names = ["loss"] + [f"d{name}" for name in inputs]
     rel = {name: float((a - b).norm() / b.norm().clamp_min(1e-30))
-           for name, a, b in zip(("loss", "dz", "dc"), card, cpu)}
-    result = {"phase": "whole_step", "dtype": "float32", "population": 2,
-              "rel_err": rel, "tolerance": tol,
-              "loss": card[0].tolist(), "grad_norms": {
-                  "dz": float(card[1].norm()), "dc": float(card[2].norm())}}
+           for name, a, b in zip(names, card, cpu)}
+    result = {"phase": phase, "dtype": "float32", "population": 2,
+              "rel_err": rel, "tolerance": tol, "loss": card[0].tolist(),
+              "grad_norms": {name: float(t.norm())
+                             for name, t in zip(names[1:], card[1:])}}
     emit(result)
     assert all(v <= tol for v in rel.values()), rel
+
+
+def phase_whole_step():
+    import torch
+    from pix2latent_tpu_torch.utils.flagship import build
+
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(1)
+    z = torch.fmod(torch.randn(2, 128, generator=gen), 2.0)
+    c = 0.1 * torch.randn(2, 128, generator=gen)
+    _whole_step("whole_step", build, {"z": z, "c": c})
+
+
+def phase_sg2_path(generations, final_steps):
+    import math
+
+    import torch
+    from pix2latent_tpu_torch.ops import fir_blur as FB
+    from pix2latent_tpu_torch.ops import mod_backward as MB
+    from pix2latent_tpu_torch.optimizers import BasinCMAOptimizer
+    from pix2latent_tpu_torch.utils.flagship import build_stylegan2
+
+    model, loss_fn, vm = build_stylegan2(torch.bfloat16, "cuda")
+    opt = BasinCMAOptimizer(model, vm, loss_fn, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    FB.reset_launch_counts()
+    MB.reset_launch_counts()
+    t0 = time.perf_counter()
+    variables, outs, final = opt.optimize(generations, GRAD_STEPS,
+                                          last_grad_steps=final_steps)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = {"fir_blur_fwd": FB.launch_counts()["fwd"],
+              "fir_blur_bwd": FB.launch_counts()["bwd"],
+              "mod_backward": MB.launch_counts()["bwd"]}
+
+    # 7 up-path blurs per forward and per backward (one per resolution
+    # 8..512); 23 modulated convs per backward (conv1, to_rgb1 and three per
+    # resolution); a tell forward blurs but runs no backward
+    forwards = generations * (GRAD_STEPS + 1) + final_steps
+    backwards = generations * GRAD_STEPS + final_steps
+    expect = {"fir_blur_fwd": 7 * forwards, "fir_blur_bwd": 7 * backwards,
+              "mod_backward": 23 * backwards}
+    out = outs[0]
+    tell_mins = opt.losses
+    final_min = float(final[0][1]["loss"].min())
+    steady = opt.gen_seconds[1:] or opt.gen_seconds
+    gen_s = statistics.mean(steady)
+    result = {
+        "phase": "sg2_path", "model": "stylegan2-cars-512",
+        "channel_multiplier": 2, "dtype": "bfloat16",
+        "population": opt.num_samples, "grad_steps": GRAD_STEPS,
+        "generations": generations, "final_steps": final_steps,
+        "shortened": ("no" if (generations, final_steps) == (30, 300) else
+                      f"{generations} of 30 generations, {final_steps} of "
+                      "300 final Adam steps"),
+        "seconds": seconds, "gen_seconds": opt.gen_seconds,
+        "seconds_per_generation": gen_s,
+        "images_per_sec": opt.num_samples * GRAD_STEPS / gen_s,
+        "tell_min_per_generation": tell_mins, "final_min_loss": final_min,
+        "out_shape": list(out.shape), "launches": counts,
+        "expected_launches": expect,
+        "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    emit(result)
+    assert opt.num_samples == SG2_POP, opt.num_samples
+    assert tuple(out.shape) == (SG2_POP, 512, 512, 3), out.shape
+    assert bool(torch.isfinite(torch.as_tensor(out)).all())
+    assert all(math.isfinite(v) for v in tell_mins), tell_mins
+    assert math.isfinite(final_min) and final_min < tell_mins[0], (
+        f"no convergence: first generation {tell_mins[0]}, final {final_min}")
+    assert counts == expect, (counts, expect)
+    assert all(v > 0 for v in counts.values()), counts
+    return counts
+
+
+def phase_sg2_whole_step():
+    import torch
+    from pix2latent_tpu_torch.utils.flagship import build_stylegan2
+
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(1)
+    _whole_step("sg2_whole_step", build_stylegan2,
+                {"z": torch.randn(2, 512, generator=gen)})
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--generations", type=int, default=30)
     ap.add_argument("--final-steps", type=int, default=300)
+    ap.add_argument("--sg2-generations", type=int, default=30)
+    ap.add_argument("--sg2-final-steps", type=int, default=300)
     args = ap.parse_args(argv)
 
     try:
@@ -301,21 +541,43 @@ def main(argv=None):
     cases = phase_kernels()
     counts = phase_main_path(args.generations, args.final_steps)
     phase_whole_step()
+    sg2_counts = phase_sg2_path(args.sg2_generations, args.sg2_final_steps)
+    phase_sg2_whole_step()
 
-    flag = next(c for c in cases
-                if c["dtype"] == "bfloat16" and tuple(c["shape"]) == FLAGSHIP)
-    src = "pix2latent_tpu_torch/csrc/sagan_attention.cu"
+    def timed_bf16(kernel):      # the bf16 case at the path's shape
+        return next(c for c in cases if c["kernel"] == kernel
+                    and c["dtype"] == "bfloat16"
+                    and ("ms" in c or "fwd_ms" in c))
+
     kernels = []
-    for key, line in (("fwd", 131), ("bwd", 154)):
-        kernels.append({
-            "name": f"sagan_attention_{key}", "route": "cuda", "source": src,
-            "replaces": f"pix2latent_tpu/ops/attention.py:{line}",
-            "launches": counts[key],
-            "max_abs_err": flag[f"{key}_max_abs_err"],
-            "ms": flag[f"{key}_ms"], "plain_ms": flag[f"plain_{key}_ms"],
-            "bound_ms": flag[f"{key}_bound_ms"],
-            "bound_by": flag[f"{key}_bound_by"],
-            "library_ms": flag[f"library_{key}_ms"]})
+    for kernel, launches, src, site in (
+            ("sagan_attention", counts, "sagan_attention.cu",
+             {"fwd": "attention.py:131", "bwd": "attention.py:154"}),
+            ("fir_blur", {"fwd": sg2_counts["fir_blur_fwd"],
+                          "bwd": sg2_counts["fir_blur_bwd"]},
+             "fir_blur.cu", {"fwd": "pallas_fir.py:108",
+                             "bwd": "pallas_fir.py:108"})):
+        case = timed_bf16(kernel)
+        for key in ("fwd", "bwd"):
+            kernels.append({
+                "name": f"{kernel}_{key}", "route": "cuda",
+                "source": f"pix2latent_tpu_torch/csrc/{src}",
+                "replaces": f"pix2latent_tpu/ops/{site[key]}",
+                "launches": launches[key],
+                "max_abs_err": case[f"{key}_max_abs_err"],
+                "ms": case[f"{key}_ms"], "plain_ms": case[f"plain_{key}_ms"],
+                "bound_ms": case[f"{key}_bound_ms"],
+                "bound_by": case[f"{key}_bound_by"],
+                "library_ms": case[f"library_{key}_ms"]})
+    case = timed_bf16("mod_backward")
+    kernels.append({
+        "name": "mod_backward", "route": "cuda",
+        "source": "pix2latent_tpu_torch/csrc/mod_backward.cu",
+        "replaces": "pix2latent_tpu/ops/mod_backward.py:97",
+        "launches": sg2_counts["mod_backward"],
+        "max_abs_err": case["max_abs_err"], "ms": case["ms"],
+        "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
+        "bound_by": case["bound_by"], "library_ms": case["library_ms"]})
     emit({"kernels": kernels})
     print(env["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -2,9 +2,10 @@
 
 Same public layout as the JAX package: images are NHWC float32 in [-1, 1],
 latents ``[pop, dim]``. Entry points take ``device=`` (default ``"cuda"``)
-and raise without a GPU unless ``device="cpu"`` is given. The SA-GAN
-attention runs a hand-written CUDA kernel on the card (``ops/attention.py``,
-``csrc/sagan_attention.cu``).
+and raise without a GPU unless ``device="cpu"`` is given. Three hand-written
+CUDA kernels run on the card: the SA-GAN attention (``ops/attention.py``),
+the separable FIR blur (``ops/fir_blur.py``) and the fused modulation
+backward (``ops/mod_backward.py``), built from ``csrc/*.cu`` at first use.
 """
 
 from pix2latent_tpu_torch import distribution, hooks

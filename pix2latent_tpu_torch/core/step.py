@@ -10,6 +10,11 @@ JAX package's "hook, then step from the hooked values".
 
 Registered *input* variable names are the model's forward keywords; *output*
 variable names are the loss's keywords.
+
+``max_batch_size`` cuts the population into microbatches of that many rows
+(:func:`chunk_spec`): each chunk runs its forward and backward in turn, so
+peak activation memory is one chunk's, and each chunk's gradient is scaled
+by ``chunk / pop`` so that the sum equals the whole population's.
 """
 
 from __future__ import annotations
@@ -23,13 +28,57 @@ from pix2latent_tpu_torch.variables import (VariableManager,
                                             VariableOptimizer, Variables)
 
 
+def chunk_spec(pop: int, max_batch_size) -> tuple:
+    """(n_chunks, chunk_size, pad_rows) for a population of ``pop`` rows.
+
+    Chunks are exactly ``max_batch_size`` rows; when the population does not
+    divide evenly the LAST chunk is padded by wrapping the first ``pad_rows``
+    population rows, whose results are sliced away and which pass no
+    gradient (as in the JAX package, ``core/step.py:chunk_spec``)."""
+    if not max_batch_size or pop <= max_batch_size:
+        return 1, pop, 0
+    chunk = int(max_batch_size)
+    n = -(-pop // chunk)
+    return n, chunk, n * chunk - pop
+
+
+def _map_tensors(fn, tree):
+    """``fn`` on every tensor of a nested dict / list / tuple (None kept)."""
+    if isinstance(tree, dict):
+        return {k: _map_tensors(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_tensors(fn, v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    return tree
+
+
+def _rows(pop: int, lo: int, hi: int, pad: int):
+    """The rows [lo, hi) of every tensor with ``pop`` leading rows, plus the
+    first ``pad`` rows wrapped on, detached; other tensors (1-row shared
+    outputs and their contexts) are left whole."""
+    def take(t):
+        if t.dim() == 0 or t.shape[0] != pop:
+            return t
+        if not pad:
+            return t[lo:hi]
+        return torch.cat([t[lo:hi], t[:pad].detach()])
+    return take
+
+
+def _cat(parts):
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
 class ExecutionCore:
     """Runs the inner steps and the tell evaluations of one problem."""
 
-    def __init__(self, model, var_manager: VariableManager, loss_fn: Callable):
+    def __init__(self, model, var_manager: VariableManager, loss_fn: Callable,
+                 max_batch_size: Optional[int] = None):
         self.model = as_model(model)
         self.var_manager = var_manager
         self.loss_fn = loss_fn
+        self.max_batch_size = max_batch_size
 
     # ------------------------------------------------------------------ #
     # forward / loss                                                     #
@@ -79,6 +128,44 @@ class ExecutionCore:
                 if s["var_type"] == "output"]
         return bool(outs) and all(not s["requires_grad"] and s["hook_fn"] is None
                                   for s in outs)
+
+    def _chunks(self, variables: Variables, ctx):
+        """[(n_real_rows, variables, ctx)] of each population microbatch,
+        and the chunk size (see :func:`chunk_spec`)."""
+        pop = max(a.shape[0] for d in variables.values() for a in d.values())
+        n, chunk, pad = chunk_spec(pop, self.max_batch_size)
+        if n == 1:
+            return [(pop, variables, ctx)], pop, pop
+        out = []
+        for i in range(n):
+            lo, hi = i * chunk, min((i + 1) * chunk, pop)
+            take = _rows(pop, lo, hi, pad if i == n - 1 else 0)
+            out.append((hi - lo, _map_tensors(take, variables),
+                        _map_tensors(take, ctx)))
+        return out, chunk, pop
+
+    def _forward_backward(self, variables: Variables, ctx=None):
+        """Forward, loss and backward of the population mean, chunk by
+        chunk; the gradients accumulate into the variables' ``.grad``.
+        Returns the detached ``(per-sample losses [pop], images)``."""
+        chunks, chunk, pop = self._chunks(variables, ctx)
+        losses, outs = [], []
+        for real, v, c in chunks:
+            loss, per_sample, out = self._forward_loss(v, c)
+            (loss * (chunk / pop)).backward()
+            losses.append(per_sample[:real].detach())
+            outs.append(out[:real].detach())
+        return _cat(losses), _cat(outs)
+
+    def _eval_chunked(self, variables: Variables, ctx=None):
+        """``(per-sample losses [pop], images)`` without gradients, chunk
+        by chunk."""
+        losses, outs = [], []
+        for real, v, c in self._chunks(variables, ctx)[0]:
+            _, per_sample, out = self._forward_loss(v, c)
+            losses.append(per_sample[:real])
+            outs.append(out[:real])
+        return _cat(losses), _cat(outs)
 
     def make_ctx(self, variables: Variables):
         """The loss's target-side context (the LPIPS target pyramid),
@@ -135,18 +222,17 @@ class ExecutionCore:
             variables = self._hook_in_place(generator, variables,
                                             start_step + i)
             optimizer.zero_grad()
-            loss, per_sample, out = self._forward_loss(variables, ctx)
-            loss.backward()
+            per_sample, out = self._forward_backward(variables, ctx)
             optimizer.step()
-            losses.append(per_sample.detach())
-        return variables, optimizer, out.detach(), {"loss": torch.stack(losses)}
+            losses.append(per_sample)
+        return variables, optimizer, out, {"loss": torch.stack(losses)}
 
     def eval(self, variables: Variables, generator, step=0):
         """Hooks + forward + per-sample loss, no updates: ``(out, loss)``."""
         with torch.no_grad():
             variables = self._dedupe_outputs(variables)
             variables = self.var_manager.apply_hooks(generator, variables, step)
-            _, per_sample, out = self._forward_loss(variables)
+            per_sample, out = self._eval_chunked(variables)
         return out, per_sample
 
     def tell_loss(self, variables: Variables, generator, step=0,
@@ -159,5 +245,5 @@ class ExecutionCore:
         with torch.no_grad():
             variables = self._dedupe_outputs(variables)
             variables = self.var_manager.apply_hooks(generator, variables, step)
-            _, per_sample, _ = self._forward_loss(variables, ctx)
+            per_sample, _ = self._eval_chunked(variables, ctx)
         return per_sample

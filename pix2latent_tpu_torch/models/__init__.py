@@ -1,3 +1,4 @@
 from pix2latent_tpu_torch.models.biggan import BigGAN
+from pix2latent_tpu_torch.models.stylegan2 import StyleGAN2
 
-__all__ = ["BigGAN"]
+__all__ = ["BigGAN", "StyleGAN2"]

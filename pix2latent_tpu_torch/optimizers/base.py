@@ -5,6 +5,8 @@ collages are not ported yet."""
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
@@ -21,20 +23,24 @@ class _BaseOptimizer:
             (``models/base.py``) or a bare callable.
         var_manager: the VariableManager with the registered variables.
         loss_fn: ``loss_fn(out, **output_vars)``.
+        max_batch_size: population microbatch size; None runs the
+            population whole (see ``core/step.py``).
         seed: seed of this optimizer's ``torch.Generator`` (the JAX
             package's key stream).
         device: must be the variable manager's device.
     """
 
     def __init__(self, model, var_manager: VariableManager, loss_fn,
-                 seed: int = 0, device="cuda"):
+                 max_batch_size: Optional[int] = None, seed: int = 0,
+                 device="cuda"):
         self.device = resolve_device(device)
         if var_manager.device != self.device:
             raise ValueError(f"the variable manager lives on "
                              f"{var_manager.device}, not {self.device}")
         self.var_manager = var_manager
         self.loss_fn = loss_fn
-        self.core = ExecutionCore(model, var_manager, loss_fn)
+        self.core = ExecutionCore(model, var_manager, loss_fn,
+                                  max_batch_size=max_batch_size)
         self.model = self.core.model
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)

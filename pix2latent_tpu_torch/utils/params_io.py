@@ -3,19 +3,26 @@
 ``pix2latent_tpu/utils/params_io.py:save_params_npz`` writes a nested
 parameter tree as ``/``-joined key paths ("generator/block_0/conv_0/kernel").
 This module reads that layout and maps it onto the port's modules, whose
-parameter names follow the same paths with ``.`` for ``/`` and ``weight``
-for ``kernel``:
+parameter names follow the same paths with ``.`` for ``/``. How names and
+arrays change depends on the model's Flax conventions, so each convention is
+a :class:`Layout`:
 
-- Flax conv kernels ``[kh, kw, in, out]`` (HWIO) become ``[out, in, kh, kw]``
-  (OIHW);
-- Flax Dense kernels ``[in, out]`` become Linear weights ``[out, in]``;
-- every other leaf (biases, BigGAN's standing statistics, ``gamma``) keeps
+- :data:`FLAX_KERNELS` (BigGAN, LPIPS, the toy model: ``nn.Conv`` /
+  ``nn.Dense`` leaves called ``kernel``): ``kernel`` becomes ``weight``;
+  conv kernels ``[kh, kw, in, out]`` (HWIO) become ``[out, in, kh, kw]``
+  (OIHW), Dense kernels ``[in, out]`` become Linear weights ``[out, in]``;
+  every other leaf (biases, BigGAN's standing statistics, ``gamma``) keeps
   its shape.
+- :data:`STYLEGAN2` (hand-written ``self.param`` leaves, every weight called
+  ``weight``): names are unchanged; 2-D weights ``[in, out]`` become
+  ``[out, in]``, 4-D ``weight`` leaves (modulated convs, HWIO) become OIHW,
+  and the other 4-D leaves (the constant ``input`` and the ``noise_i``
+  buffers, NHWC) become NCHW; biases and 0-d noise gains keep their shape.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Callable, Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -80,17 +87,64 @@ def jax_shape(name: str, shape: Tuple[int, ...]) -> Tuple[int, ...]:
     return tuple(shape)
 
 
-def from_jax_params(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+def _sg2_torch_name(path: str) -> str:
+    return path.replace(_SEP, ".")
+
+
+def _sg2_jax_name(name: str, ndim: int) -> str:
+    del ndim
+    return name.replace(".", _SEP)
+
+
+def _sg2_to_torch_array(path: str, arr: np.ndarray) -> np.ndarray:
+    arr = np.asarray(arr, np.float32)
+    if arr.ndim == 2:
+        return arr.T
+    if arr.ndim == 4:
+        if path.split(_SEP)[-1] == "weight":
+            return arr.transpose(3, 2, 0, 1)          # HWIO -> OIHW
+        return arr.transpose(0, 3, 1, 2)              # NHWC -> NCHW
+    return arr
+
+
+def _sg2_jax_shape(name: str, shape: Tuple[int, ...]) -> Tuple[int, ...]:
+    if len(shape) == 2:
+        return (shape[1], shape[0])
+    if len(shape) == 4:
+        a, b, c, d = shape
+        if name.split(".")[-1] == "weight":
+            return (c, d, b, a)                       # OIHW -> HWIO
+        return (a, c, d, b)                           # NCHW -> NHWC
+    return tuple(shape)
+
+
+class Layout(NamedTuple):
+    """How one model family's JAX leaves map onto the port's parameters."""
+    to_torch_name: Callable[[str], str]
+    to_jax_name: Callable[[str, int], str]
+    to_torch_array: Callable[[str, np.ndarray], np.ndarray]
+    jax_shape: Callable[[str, Tuple[int, ...]], Tuple[int, ...]]
+
+
+FLAX_KERNELS = Layout(jax_to_torch_name, torch_to_jax_name,
+                      jax_to_torch_array, jax_shape)
+STYLEGAN2 = Layout(_sg2_torch_name, _sg2_jax_name, _sg2_to_torch_array,
+                   _sg2_jax_shape)
+
+
+def from_jax_params(flat: Dict[str, np.ndarray],
+                    layout: Layout = FLAX_KERNELS) -> Dict[str, torch.Tensor]:
     """A flat JAX parameter dict as a state_dict for the port's module with
     the same tree (see the module docstring for the layout rules)."""
-    return {jax_to_torch_name(k): torch.tensor(jax_to_torch_array(k, v))
+    return {layout.to_torch_name(k): torch.tensor(layout.to_torch_array(k, v))
             for k, v in flat.items()}
 
 
-def sorted_jax_leaves(module: torch.nn.Module):
+def sorted_jax_leaves(module: torch.nn.Module, layout: Layout = FLAX_KERNELS):
     """[(jax path, jax shape, torch name)] of ``module``'s parameters in the
     order JAX flattens the equivalent nested dict (keys sorted per level) —
     the order the JAX package's host-RNG random inits draw in."""
-    leaves = [(torch_to_jax_name(n, p.dim()), jax_shape(n, tuple(p.shape)), n)
+    leaves = [(layout.to_jax_name(n, p.dim()),
+               layout.jax_shape(n, tuple(p.shape)), n)
               for n, p in module.named_parameters()]
     return sorted(leaves, key=lambda t: tuple(t[0].split(_SEP)))

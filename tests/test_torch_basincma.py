@@ -152,6 +152,11 @@ def test_port_imports_nothing_of_jax():
     files = sorted((ROOT / "pix2latent_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 10
+    names = {f.relative_to(ROOT).as_posix() for f in files}
+    assert {f"pix2latent_tpu_torch/{m}.py" for m in (
+        "ops/upfirdn2d", "ops/fir_blur", "ops/mod_backward",
+        "models/stylegan2", "optimizers/gradient", "optimizers/cma_optimizer",
+        "utils/params_io", "utils/flagship", "core/step")} <= names
     for f in files:
         assert not _FORBIDDEN.search(f.read_text()), f
     probe = ("import sys, pkgutil, importlib, pix2latent_tpu_torch as p\n"

@@ -1,4 +1,7 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card:
+the SA-GAN attention (K1), the separable FIR blur (K2) and the fused
+modulation backward (K3), in float32 and bfloat16, at the largest shapes
+their paths give them and at ragged ones.
 
 Every test here is marked ``cuda`` and skips without an NVIDIA GPU. The file
 imports neither JAX nor the JAX package, so it also runs where JAX is not
@@ -12,6 +15,8 @@ import pytest
 import torch
 
 from pix2latent_tpu_torch.ops import attention as A
+from pix2latent_tpu_torch.ops import fir_blur as FB
+from pix2latent_tpu_torch.ops import mod_backward as MB
 
 pytestmark = pytest.mark.cuda
 
@@ -81,3 +86,125 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
     big = torch.zeros((1, 16, 1024), device=cuda)
     with pytest.raises(ValueError):
         A.sagan_attention(theta, phi, big)
+
+
+# --------------------------------------------------------------------- #
+# K2: separable FIR blur                                                 #
+# --------------------------------------------------------------------- #
+
+TAPS = (0.25, 0.75, 0.75, 0.25)   # [1, 3, 3, 1] / 8 * sqrt(4), the up-path blur
+# (rtol, atol) of the output and the gradient: the f32 tolerances of
+# tests/test_pallas_fir.py; in bf16 one rounding step, since kernel and plain
+# version round one f32 sum once and the sums differ only in operation order
+FIR_TOL = {torch.float32: ((0.0, 1e-5), (0.0, 1e-4)),
+           torch.bfloat16: ((2.0 ** -7, 1e-5), (2.0 ** -7, 1e-5))}
+FIR_CASES = [
+    ((3, 5, 37, 41), (2, 1)),      # ragged planes, asymmetric pad
+    ((2, 4, 9, 9), (1, 1)),        # the smallest path level (r = 8)
+    ((22, 64, 513, 513), (1, 1)),  # the largest path level (r = 512)
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,pad", FIR_CASES)
+def test_fir_blur_kernel_matches_plain(cuda, shape, pad, dtype):
+    rng = np.random.RandomState(1)
+    n, c, h, w = shape
+    ho, wo = h + sum(pad) - 3, w + sum(pad) - 3
+    x = torch.tensor(rng.randn(*shape).astype(np.float32), device=cuda).to(dtype)
+    cot = torch.tensor(rng.randn(n, c, ho, wo).astype(np.float32),
+                       device=cuda).to(dtype)
+    FB.reset_launch_counts()
+    x_k = x.clone().requires_grad_(True)
+    y_k = FB.fir_blur(x_k, TAPS, pad)
+    y_k.backward(cot)
+    x_r = x.clone().requires_grad_(True)
+    y_r = FB.fir_blur_reference(x_r, TAPS, pad)
+    y_r.backward(cot)
+    torch.cuda.synchronize()
+
+    assert FB.launch_counts() == {"fwd": 1, "bwd": 1}
+    assert y_k.dtype == dtype and y_k.shape == (n, c, ho, wo)
+    assert x_k.grad.dtype == dtype
+    (rt_o, at_o), (rt_g, at_g) = FIR_TOL[dtype]
+    torch.testing.assert_close(y_k.float(), y_r.float(), rtol=rt_o, atol=at_o)
+    torch.testing.assert_close(x_k.grad.float(), x_r.grad.float(), rtol=rt_g,
+                               atol=at_g)
+
+
+def test_fir_blur_rejects_what_it_does_not_take(cuda):
+    x = torch.zeros((1, 2, 8, 8), device=cuda)
+    with pytest.raises(TypeError):
+        FB.fir_blur(x.half(), TAPS, (1, 1))
+    with pytest.raises(ValueError):
+        FB.fir_blur(x.transpose(2, 3), TAPS, (1, 1))
+    with pytest.raises(ValueError):
+        FB.fir_blur(x[0], TAPS, (1, 1))
+    with pytest.raises(ValueError):
+        FB.fir_blur(x, [0.1] * 9, (1, 1))
+
+
+# --------------------------------------------------------------------- #
+# K3: fused modulation backward                                          #
+# --------------------------------------------------------------------- #
+
+# (rtol, atol) of g_x and of g_s, tests/test_mod_backward.py
+MOD_TOL = {torch.float32: ((1e-6, 0.0), (5e-5, 1e-5)),
+           torch.bfloat16: ((2e-2, 1e-2), (2e-2, 1e-2))}
+MOD_SHAPES = [
+    (3, 5, 7, 9),          # ragged plane: one element a thread
+    (22, 512, 4, 4),       # the smallest path level
+    (22, 64, 512, 512),    # the largest path level
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", MOD_SHAPES)
+def test_mod_backward_kernel_matches_plain(cuda, shape, dtype):
+    rng = np.random.RandomState(2)
+    n, c = shape[:2]
+    g = torch.tensor(rng.randn(*shape).astype(np.float32), device=cuda).to(dtype)
+    x = torch.tensor(rng.randn(*shape).astype(np.float32), device=cuda).to(dtype)
+    s = torch.tensor(rng.rand(n, c).astype(np.float32) + 0.5,
+                     device=cuda).to(dtype)
+    MB.reset_launch_counts()
+    gx, gs = MB.fused_mod_backward(g, x, s)
+    gx_r, gs_r = MB.mod_backward_reference(g, x, s)
+    torch.cuda.synchronize()
+
+    assert MB.launch_counts() == {"bwd": 1}
+    assert gx.dtype == dtype and gs.dtype == torch.float32
+    (rt_x, at_x), (rt_s, at_s) = MOD_TOL[dtype]
+    torch.testing.assert_close(gx.float(), gx_r.float(), rtol=rt_x, atol=at_x)
+    torch.testing.assert_close(gs, gs_r, rtol=rt_s, atol=at_s)
+
+
+def test_modulate_vjp_runs_the_kernel(cuda):
+    rng = np.random.RandomState(3)
+    x = torch.tensor(rng.randn(2, 8, 16, 16).astype(np.float32), device=cuda)
+    s = torch.tensor(rng.rand(2, 8).astype(np.float32) + 0.5, device=cuda)
+    tgt = torch.tensor(rng.randn(2, 8, 16, 16).astype(np.float32), device=cuda)
+    grads = []
+    for fused in (False, True):
+        xs = [x.clone().requires_grad_(True), s.clone().requires_grad_(True)]
+        (torch.sin(MB.modulate(*xs, fused=fused)) * tgt).sum().backward()
+        grads.append([t.grad for t in xs])
+    MB.reset_launch_counts()
+    xs = [x.clone().requires_grad_(True), s.clone().requires_grad_(True)]
+    MB.modulate(*xs, fused=True).sum().backward()
+    assert MB.launch_counts() == {"bwd": 1}
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=5e-5, atol=1e-5)
+
+
+def test_mod_backward_rejects_what_it_does_not_take(cuda):
+    g = torch.zeros((2, 3, 4, 4), device=cuda)
+    s = torch.ones((2, 3), device=cuda)
+    with pytest.raises(TypeError):
+        MB.fused_mod_backward(g.half(), g.half(), s.half())
+    with pytest.raises(ValueError):
+        MB.fused_mod_backward(g.transpose(2, 3), g, s)
+    with pytest.raises(ValueError):
+        MB.fused_mod_backward(g, g, s[:, :2].contiguous())
+    with pytest.raises(ValueError):
+        MB.fused_mod_backward(g, g.cpu(), s)
