@@ -13,7 +13,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    on the card, in float32 and bfloat16, at the largest shape its path gives
    it and at a small ragged shape:
    - the SA-GAN attention (K1), forward and backward, at the
-     BigGAN-deep-256 shape, with the tolerances of ``tests/test_attention.py``;
+     BigGAN-deep-256 shape (and, in bfloat16, the BigGAN-deep-128 one), with
+     the tolerances of ``tests/test_attention.py``; in bfloat16 (the
+     tensor-core route) two forward + backward calls must also give bitwise
+     equal results;
    - the separable FIR blur (K2), forward and backward, at [22, 64, 513, 513]
      with pad (1, 1), with the float32 tolerances of
      ``tests/test_pallas_fir.py`` (atol 1e-5 output, 1e-4 gradient) and, in
@@ -27,7 +30,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    (``scaled_dot_product_attention`` with ``scale=1.0`` for K1, one
    depthwise ``F.conv2d`` with the 4x4 outer-product kernel for K2; none
    for K3), timed here only and never called by the port, beside the least
-   time the card could take.
+   time the card could take. K1's case also gives the FLOPs its kernels do,
+   tile padding included, as the kernel source counts them
+   (``fwd_design_ops``, ``bwd_design_ops``).
 4. ``main_path``: BasinCMA inversion of the ``bench.py`` ramp target through
    BigGAN-deep-256 at full width (channel width 128) in bfloat16, under
    ProjectionLoss (masked L1 + 10 x LPIPS-alex), population 18, 30 inner
@@ -67,6 +72,7 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
 
 FLAGSHIP = (18, 4096, 1024, 64, 256)   # n, q, k, d, dv at 256 px, pop 18
+BIGGAN128 = (18, 4096, 1024, 32, 128)  # the same at 128 px
 RAGGED = (3, 100, 37, 5, 20)
 # (atol = rtol) for the output and for the gradients, tests/test_attention.py
 TOL = {"float32": (1e-5, 2e-4), "bfloat16": (2e-2, 5e-2)}
@@ -174,8 +180,9 @@ def _attention_case(shape, dtype, timed):
     tol_o, tol_g = TOL[name]
     err_o, ok_o = max_err_within(out_k, out_r, tol_o)
     errs_g = [max_err_within(a, b, tol_g) for a, b in zip(grads_k, grads_r)]
+    design = "tensor-core" if dtype == torch.bfloat16 else "fma"
     case = {"kernel": "sagan_attention", "shape": list(shape), "dtype": name,
-            "tol_out": tol_o,
+            "design": design, "tol_out": tol_o,
             "tol_grad": tol_g, "fwd_max_abs_err": err_o,
             "bwd_max_abs_err": max(e for e, _ in errs_g),
             "ok": ok_o and all(ok for _, ok in errs_g)}
@@ -183,6 +190,16 @@ def _attention_case(shape, dtype, timed):
         return case
 
     o, m, l = A.kernel_forward(theta, phi, g)
+    if dtype == torch.bfloat16:
+        runs = []
+        for _ in range(2):
+            o2, m2, l2 = A.kernel_forward(theta, phi, g)
+            runs.append((o2, m2, l2,
+                         *A.kernel_backward(theta, phi, g, cot, m2, l2)))
+        case["deterministic"] = all(torch.equal(a, b)
+                                    for a, b in zip(*runs))
+        case["ok"] = case["ok"] and case["deterministic"]
+        del runs
     case["fwd_ms"] = cuda_ms(lambda: A.kernel_forward(theta, phi, g))
     case["bwd_ms"] = cuda_ms(
         lambda: A.kernel_backward(theta, phi, g, cot, m, l))
@@ -208,9 +225,14 @@ def _attention_case(shape, dtype, timed):
         + size * n * q * dv + stats
     ops_fwd = 2 * n * q * k * (d + dv)
     ops_bwd = 2 * n * q * k * (3 * d + 2 * dv)
-    for key, b, f in (("fwd", bytes_fwd, ops_fwd), ("bwd", bytes_bwd, ops_bwd)):
+    # the FLOPs the kernels do, tile padding included, as their source
+    # counts them
+    work = A.kernel_work(n, q, k, d, dv, dtype)
+    for key, b, f, f_done in (("fwd", bytes_fwd, ops_fwd, work[0]),
+                              ("bwd", bytes_bwd, ops_bwd, work[1])):
         case[f"{key}_bound_ms"], case[f"{key}_bound_by"] = bound(b, f, name)
         case[f"{key}_bytes"], case[f"{key}_ops"] = b, f
+        case[f"{key}_design_ops"] = f_done
     del o
     return case
 
@@ -327,6 +349,8 @@ def phase_kernels():
     for dtype in (torch.float32, torch.bfloat16):
         cases.append(_attention_case(FLAGSHIP, dtype, timed=True))
         cases.append(_attention_case(RAGGED, dtype, timed=False))
+        if dtype == torch.bfloat16:
+            cases.append(_attention_case(BIGGAN128, dtype, timed=True))
         torch.cuda.empty_cache()
         cases.append(_fir_case(*FIR_PATH, dtype, timed=True))
         cases.append(_fir_case(*FIR_RAGGED, dtype, timed=False))
@@ -547,7 +571,9 @@ def main(argv=None):
     def timed_bf16(kernel):      # the bf16 case at the path's shape
         return next(c for c in cases if c["kernel"] == kernel
                     and c["dtype"] == "bfloat16"
-                    and ("ms" in c or "fwd_ms" in c))
+                    and ("ms" in c or "fwd_ms" in c)
+                    and (kernel != "sagan_attention"
+                         or tuple(c["shape"]) == FLAGSHIP))
 
     kernels = []
     for kernel, launches, src, site in (
@@ -559,6 +585,8 @@ def main(argv=None):
                              "bwd": "pallas_fir.py:108"})):
         case = timed_bf16(kernel)
         for key in ("fwd", "bwd"):
+            extra = ({"design": case["design"]}
+                     if kernel == "sagan_attention" else {})
             kernels.append({
                 "name": f"{kernel}_{key}", "route": "cuda",
                 "source": f"pix2latent_tpu_torch/csrc/{src}",
@@ -568,7 +596,7 @@ def main(argv=None):
                 "ms": case[f"{key}_ms"], "plain_ms": case[f"plain_{key}_ms"],
                 "bound_ms": case[f"{key}_bound_ms"],
                 "bound_by": case[f"{key}_bound_by"],
-                "library_ms": case[f"library_{key}_ms"]})
+                "library_ms": case[f"library_{key}_ms"], **extra})
     case = timed_bf16("mod_backward")
     kernels.append({
         "name": "mod_backward", "route": "cuda",

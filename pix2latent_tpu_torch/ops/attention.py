@@ -11,6 +11,11 @@ kernel there; its source note gives its bound and design. On a CUDA tensor
 :func:`sagan_attention` always launches the kernel, and raises on a shape or
 type the kernel does not take; on a CPU tensor it runs
 :func:`sagan_attention_reference`.
+
+The kernel's route is chosen by the input type alone: bfloat16 runs the
+tensor-core kernels (``mma.sync``, bf16 tiles, f32 sums, dS as bf16 hi + lo),
+float32 the f32 FMA kernels (the tensor cores would need TF32). Both take
+every shape :func:`kernel_forward` accepts; neither stands in for the other.
 """
 
 from __future__ import annotations
@@ -44,6 +49,8 @@ def _lib():
         lib.sagan_attention_fwd.restype = i
         lib.sagan_attention_bwd.argtypes = [p] * 10 + [i] * 6 + [p]
         lib.sagan_attention_bwd.restype = i
+        lib.sagan_attention_work.argtypes = [i] * 6 + [p]
+        lib.sagan_attention_work.restype = i
         lib._argtypes_set = True
     return lib
 
@@ -129,6 +136,19 @@ def kernel_backward(theta, phi, g, do, m, l):
     _raise_on(err, "backward")
     SaganAttentionFunction.bwd_launches += 1
     return dtheta, dphi, dg
+
+
+def kernel_work(n, q, k, d, dv, dtype):
+    """``(forward, backward)`` FLOPs that the kernels for ``dtype`` do at
+    this shape, tile padding included, as the kernel source counts them from
+    its own tiles. Launches nothing."""
+    work = (ctypes.c_double * 2)()
+    err = _lib().sagan_attention_work(n, q, k, d, dv,
+                                      int(dtype == torch.bfloat16), work)
+    if err != 0:
+        raise ValueError(f"sagan_attention: the kernel does not take n={n} "
+                         f"q={q} k={k} d={d} dv={dv}")
+    return work[0], work[1]
 
 
 class SaganAttentionFunction(torch.autograd.Function):

@@ -15,16 +15,20 @@ from pix2latent_tpu.ops.attention import (sagan_attention,
 from pix2latent_tpu_torch.ops import attention as TA
 
 N, Q, K, D, DV = 2, 256, 64, 8, 16
+# (n, q, k, d, dv): the smallest shape, and the head widths of
+# BigGAN-deep-128 (d=32, dv=128) and -256 (d=64, dv=256)
+SHAPES = [(N, Q, K, D, DV), (2, 256, 64, 32, 128), (1, 256, 64, 64, 256)]
 # (atol = rtol) for the output and for the gradients
 TOL = {"float32": (1e-5, 2e-4), "bfloat16": (2e-2, 5e-2)}
 JAX_FNS = {"pallas_interpret": lambda t, p, g: sagan_attention(t, p, g, True),
            "reference": sagan_attention_reference}
 
 
-def _inputs(seed=0):
+def _inputs(seed=0, shape=SHAPES[0]):
+    n, q, k, d, dv = shape
     rng = np.random.RandomState(seed)
     return [rng.randn(*s).astype(np.float32) for s in
-            ((N, Q, D), (N, K, D), (N, K, DV), (N, Q, DV))]
+            ((n, q, d), (n, k, d), (n, k, dv), (n, q, dv))]
 
 
 def _jax(fn, arrays, dtype):
@@ -46,10 +50,11 @@ def _torch(fn, arrays, dtype):
     return [t.detach().float().numpy() for t in (out, *(i.grad for i in ins))]
 
 
+@pytest.mark.parametrize("shape", SHAPES)
 @pytest.mark.parametrize("jax_fn", sorted(JAX_FNS))
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_plain_version_matches_jax(jax_fn, dtype):
-    arrays = _inputs()
+def test_plain_version_matches_jax(jax_fn, dtype, shape):
+    arrays = _inputs(shape=shape)
     want = _jax(JAX_FNS[jax_fn], arrays, getattr(jnp, dtype))
     got = _torch(TA.sagan_attention_reference, arrays, getattr(torch, dtype))
     tol_o, tol_g = TOL[dtype]

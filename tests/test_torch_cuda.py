@@ -1,7 +1,10 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
 the SA-GAN attention (K1), the separable FIR blur (K2) and the fused
 modulation backward (K3), in float32 and bfloat16, at the largest shapes
-their paths give them and at ragged ones.
+their paths give them and at ragged ones. K1's bfloat16 route (the
+tensor-core kernels) is also held at every head width it takes, on peaked
+logits that pin the masking of padded keys, for bitwise repeatability, and
+for the precision of its dS products against a float64 computation.
 
 Every test here is marked ``cuda`` and skips without an NVIDIA GPU. The file
 imports neither JAX nor the JAX package, so it also runs where JAX is not
@@ -48,10 +51,15 @@ def _inputs(shape, dtype, device, seed=0):
     return mk(n, q, d), mk(n, k, d), mk(n, k, dv), mk(n, q, dv)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", SHAPES)
-def test_kernel_matches_plain(cuda, shape, dtype):
-    theta, phi, g, cot = _inputs(shape, dtype, cuda)
+def _fwd_bwd(fn, inputs):
+    theta, phi, g, cot = inputs
+    ins = [t.clone().requires_grad_(True) for t in (theta, phi, g)]
+    out = fn(*ins)
+    return [out.detach()] + list(torch.autograd.grad(out, ins, cot))
+
+
+def _matches_plain(shape, dtype, device):
+    theta, phi, g, cot = _inputs(shape, dtype, device)
     tol_o, tol_g = TOL[dtype]
     A.reset_launch_counts()
 
@@ -72,6 +80,95 @@ def test_kernel_matches_plain(cuda, shape, dtype):
         assert a.grad.dtype == dtype, name
         torch.testing.assert_close(a.grad.float(), b.grad.float(), rtol=tol_g,
                                    atol=tol_g, msg=name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_kernel_matches_plain(cuda, shape, dtype):
+    _matches_plain(shape, dtype, cuda)
+
+
+@pytest.mark.parametrize("dv", [16, 128, 256, 512])
+@pytest.mark.parametrize("d", [8, 16, 32, 64, 128])
+def test_bf16_head_widths_match_plain(cuda, d, dv):
+    # q and k ragged against the 64-row tiles, every padded width of d and dv
+    _matches_plain((2, 200, 150, d, dv), torch.bfloat16, cuda)
+
+
+@pytest.mark.parametrize("shape", [(2, 4100, 1030, 64, 256),
+                                   (1, 4096, 1024, 64, 256)])
+def test_bf16_ragged_path_shapes_match_plain(cuda, shape):
+    _matches_plain(shape, torch.bfloat16, cuda)
+
+
+@pytest.mark.parametrize("d", [2, 64])
+def test_bf16_peaked_logits_mask_padded_keys(cuda, d):
+    # key 0 dominates (logit -2 against -16): p rounds to 1.0 in bf16 and the
+    # output is exactly g's row 0; if the 61 padded keys of the tile counted
+    # with logit 0, they would take almost all of the probability
+    theta = torch.ones((1, 100, d), device=cuda, dtype=torch.bfloat16)
+    phi = torch.tensor([[-2.0], [-16.0], [-16.0]], device=cuda).div(d)
+    phi = phi.expand(3, d)[None].contiguous().to(torch.bfloat16)
+    g = torch.tensor([[[1.5, -2.0], [7.0, 3.0], [-5.0, 4.0]]], device=cuda,
+                     dtype=torch.bfloat16)
+    cot = torch.ones((1, 100, 2), device=cuda, dtype=torch.bfloat16)
+    got = _fwd_bwd(A.sagan_attention, (theta, phi, g, cot))
+    want = _fwd_bwd(A.sagan_attention_reference, (theta, phi, g, cot))
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got[0].float().cpu().numpy(),
+                                  np.tile([[1.5, -2.0]], (1, 100, 1)))
+    np.testing.assert_array_equal(got[0].float().cpu().numpy(),
+                                  want[0].float().cpu().numpy())
+    tol = TOL[torch.bfloat16][1]
+    for a, b in zip(got[1:], want[1:]):
+        torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol)
+
+
+def test_bf16_kernel_is_deterministic(cuda):
+    inputs = _inputs((2, 4100, 1030, 64, 256), torch.bfloat16, cuda)
+    first = _fwd_bwd(A.sagan_attention, inputs)
+    second = _fwd_bwd(A.sagan_attention, inputs)
+    torch.cuda.synchronize()
+    for a, b, name in zip(first, second, ("out", "dtheta", "dphi", "dg")):
+        assert torch.equal(a, b), name
+
+
+def test_bf16_ds_products_keep_f32_precision(cuda):
+    # dS enters dtheta and dphi as bf16 hi + lo: the kernel's gradients are
+    # no further from a float64 computation than the plain version's (whose
+    # autograd rounds dP to bf16); with dS rounded once to bf16, dtheta's
+    # error would be 1.27x the plain version's on an H100 (PERF.md, section 6)
+    shape = (18, 4096, 1024, 64, 256)
+    inputs = _inputs(shape, torch.bfloat16, cuda)
+    got = _fwd_bwd(A.sagan_attention, inputs)[1:3]
+    plain = _fwd_bwd(A.sagan_attention_reference, inputs)[1:3]
+    theta, phi, g, cot = (t.double() for t in inputs)
+    p = torch.softmax(theta @ phi.transpose(1, 2), dim=-1)
+    dp = cot @ g.transpose(1, 2)
+    ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+    del p, dp
+    exact = (ds @ phi, ds.transpose(1, 2) @ theta)
+    for name, a, b, x in zip(("dtheta", "dphi"), got, plain, exact):
+        err_kernel = float((a.double() - x).abs().max())
+        err_plain = float((b.double() - x).abs().max())
+        assert err_kernel <= err_plain, (name, err_kernel, err_plain)
+
+
+@pytest.mark.parametrize("shape", [(18, 4096, 1024, 64, 256),
+                                   (18, 4096, 1024, 32, 128)])
+def test_bf16_work_count_matches_the_source_note(cuda, shape):
+    # no tile padding at the BigGAN shapes: U (2d + dv) forward, U (7d + 4dv)
+    # backward, U = 2 n q k
+    n, q, k, d, dv = shape
+    u = 2 * n * q * k
+    assert A.kernel_work(*shape, torch.bfloat16) == (u * (2 * d + dv),
+                                                     u * (7 * d + 4 * dv))
+    assert A.kernel_work(*shape, torch.float32) == (u * (2 * d + dv),
+                                                    u * (5 * d + 4 * dv))
+    # padding only adds work: ragged q, k, d and dv
+    fwd, bwd = A.kernel_work(2, 100, 37, 5, 20, torch.bfloat16)
+    u = 2 * 2 * 100 * 37
+    assert fwd > u * (5 + 20) and bwd > u * (3 * 5 + 2 * 20)
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):
