@@ -23,6 +23,13 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      bfloat16, one bf16 rounding step (rtol 2^-7, atol 1e-5): kernel and
      plain version both round one f32 sum once, and the sums differ only in
      the order of the f32 operations;
+     in bfloat16 two forward + adjoint calls must also give bitwise equal
+     results; ``fir_levels`` holds K2 against its plain version at each of
+     the seven blurs of ``sg2_path`` ([22, ch(r), r+1, r+1], r = 8 .. 512,
+     from ``models/stylegan2.py:channels_for``), both directions, and times
+     each launch with the L2 flushed before it (outside the events), beside
+     the depthwise conv, the bound and the bytes the kernel's plan moves
+     (``*_design_bytes``, from ``fir_blur_work``), with sums over the levels;
    - the fused modulation backward (K3) at [22, 64, 512, 512], with the
      tolerances of ``tests/test_mod_backward.py``.
    Times (CUDA events, median of 25 runs) of the kernel, the plain version
@@ -85,6 +92,11 @@ FIR_RAGGED = ((3, 5, 37, 41), (2, 1))
 # (rtol, atol) of the output and of the gradient
 FIR_TOL = {"float32": ((0.0, 1e-5), (0.0, 1e-4)),
            "bfloat16": ((2.0 ** -7, 1e-5), (2.0 ** -7, 1e-5))}
+FLUSH_BYTES = 128 * 2 ** 20           # more than the 50 MB L2
+# a device-side wait of about 0.1 ms after the flush, so that the card is
+# still busy when the host has prepared the timed launch: the host's time to
+# launch stays outside the events
+SLEEP_CYCLES = 200_000
 MOD_PATH = (22, 64, 512, 512)
 MOD_RAGGED = (3, 5, 7, 9)
 # (rtol, atol) of g_x and of g_s, tests/test_mod_backward.py
@@ -275,6 +287,12 @@ def _fir_case(shape, pad, dtype, timed):
     if not timed:
         return case
 
+    if dtype == torch.bfloat16:
+        runs = [(FB.kernel_forward(x, taps, pad), FB.kernel_backward(cot, taps, pad))
+                for _ in range(2)]
+        case["deterministic"] = all(torch.equal(a, b) for a, b in zip(*runs))
+        case["ok"] = case["ok"] and case["deterministic"]
+        del runs
     adj_taps, adj_pad = FB.adjoint(taps, pad)
     case["fwd_ms"] = cuda_ms(lambda: FB.kernel_forward(x, taps, pad))
     case["bwd_ms"] = cuda_ms(lambda: FB.kernel_backward(cot, taps, pad))
@@ -303,6 +321,98 @@ def _fir_case(shape, pad, dtype, timed):
         case[f"{key}_bound_ms"], case[f"{key}_bound_by"] = bound(bytes_, ops,
                                                                  name)
         case[f"{key}_bytes"], case[f"{key}_ops"] = bytes_, ops
+    case["fwd_design_bytes"] = FB.kernel_work(x.shape, k, pad, dtype)
+    case["bwd_design_bytes"] = FB.kernel_work(cot.shape, k, adj_pad, dtype)
+    return case
+
+
+def sg2_blur_levels(im_res=512):
+    """(r, x shape) of the blur after each up-conv of StyleGAN2 at ``im_res``,
+    population 22: the transposed conv of a res r/2 input gives r + 1 rows
+    and columns of ``channels_for(r)`` channels."""
+    import math
+
+    from pix2latent_tpu_torch.models.stylegan2 import channels_for
+    return [(2 ** i, (SG2_POP, channels_for(2 ** i), 2 ** i + 1, 2 ** i + 1))
+            for i in range(3, int(math.log2(im_res)) + 1)]
+
+
+def cold_ms(fn, flush, reps=15):
+    """Median ms of ``fn`` over ``reps`` launches, each timed with CUDA
+    events after the L2 is flushed (the flush, and a short device-side wait
+    that covers the host's launch time, outside the events)."""
+    import torch
+    fn()
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _fir_levels(dtype):
+    """K2 at every level of ``sg2_path``, forward and adjoint: against the
+    plain version, and timed cold (L2 flushed) beside the depthwise conv,
+    the bound and the bytes the kernel's plan moves."""
+    import torch
+    import torch.nn.functional as F
+    from pix2latent_tpu_torch.ops import fir_blur as FB
+
+    name = str(dtype).replace("torch.", "")
+    (rt_o, at_o), (rt_g, at_g) = FIR_TOL[name]
+    size = 2 if dtype == torch.bfloat16 else 4
+    taps = tuple(float(t) for t in FIR_TAPS)
+    k, pad = len(taps), FIR_PATH[1]
+    adj_taps, adj_pad = FB.adjoint(taps, pad)
+    k2 = torch.outer(torch.tensor(taps), torch.tensor(taps))
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    levels, ok = [], True
+    for r, shape in sg2_blur_levels():
+        n, c, h, w = shape
+        x = _randn(gen, shape, dtype)
+        cot = _randn(gen, (n, c, r, r), dtype)
+        y, dx = FB.kernel_forward(x, taps, pad), FB.kernel_backward(cot, taps, pad)
+        err_o, ok_o = max_err_within(y, FB.fir_blur_reference(x, taps, pad),
+                                     rt_o, at_o)
+        err_g, ok_g = max_err_within(
+            dx, FB.fir_blur_reference(cot, adj_taps, adj_pad), rt_g, at_g)
+        weight = k2.to(device="cuda", dtype=dtype)[None, None].repeat(c, 1, 1, 1)
+        level = {"r": r, "shape": list(shape), "fwd_max_abs_err": err_o,
+                 "bwd_max_abs_err": err_g, "ok": ok_o and ok_g}
+        for key, fn, lib, b in (
+                ("fwd", lambda: FB.kernel_forward(x, taps, pad),
+                 lambda: F.conv2d(x, weight, padding=pad[0], groups=c), x),
+                ("bwd", lambda: FB.kernel_backward(cot, taps, pad),
+                 lambda: F.conv2d(cot, weight.flip(2, 3), padding=adj_pad[0],
+                                  groups=c), cot)):
+            level[f"{key}_ms"] = cold_ms(fn, flush)
+            level[f"library_{key}_ms"] = cold_ms(lib, flush)
+            rows, w_in, w_out, pd = (r, w, r, pad) if key == "fwd" else (
+                h, r, w, adj_pad)
+            level[f"{key}_bound_ms"] = bound(
+                size * n * c * (h * w + r * r),
+                2 * k * n * c * rows * (w_in + sum(pd) + w_out), name)[0]
+            level[f"{key}_design_bytes"] = FB.kernel_work(
+                b.shape, k, pad if key == "fwd" else adj_pad, dtype)
+        ok = ok and level["ok"]
+        levels.append(level)
+        del x, cot, y, dx, weight
+    case = {"kernel": "fir_levels", "dtype": name, "pad": list(pad),
+            "tol_out": [rt_o, at_o], "tol_grad": [rt_g, at_g],
+            "levels": levels, "ok": ok}
+    for key in ("fwd", "bwd"):
+        for field in (f"{key}_ms", f"library_{key}_ms", f"{key}_bound_ms"):
+            case[f"sum_{field}"] = sum(lv[field] for lv in levels)
+    del flush
     return case
 
 
@@ -354,6 +464,8 @@ def phase_kernels():
         torch.cuda.empty_cache()
         cases.append(_fir_case(*FIR_PATH, dtype, timed=True))
         cases.append(_fir_case(*FIR_RAGGED, dtype, timed=False))
+        torch.cuda.empty_cache()
+        cases.append(_fir_levels(dtype))
         torch.cuda.empty_cache()
         cases.append(_mod_case(MOD_PATH, dtype, timed=True))
         cases.append(_mod_case(MOD_RAGGED, dtype, timed=False))

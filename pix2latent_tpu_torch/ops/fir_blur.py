@@ -78,6 +78,8 @@ def _lib():
         lib.fir_blur.argtypes = ([p, p, ctypes.POINTER(ctypes.c_float)]
                                  + [i] * 8 + [p])
         lib.fir_blur.restype = i
+        lib.fir_blur_work.argtypes = [i] * 8 + [ctypes.POINTER(ctypes.c_double)]
+        lib.fir_blur_work.restype = i
         lib._argtypes_set = True
     return lib
 
@@ -94,14 +96,21 @@ def _check(x, taps, pad):
         raise ValueError(f"fir_blur: x must be NCHW, got shape {tuple(x.shape)}")
     if not x.is_contiguous():
         raise ValueError("fir_blur: x must be contiguous NCHW")
-    if not 1 <= len(taps) <= MAX_TAPS:
+    _out_shape(x.shape, len(taps), pad)
+
+
+def _out_shape(shape, k, pad):
+    """``(ho, wo)`` of the blur of an NCHW ``shape`` by ``k`` taps and
+    ``pad``; raises on what the kernel does not take."""
+    if not 1 <= k <= MAX_TAPS:
         raise ValueError(f"fir_blur: the kernel takes 1 to {MAX_TAPS} taps, "
-                         f"got {len(taps)}")
-    n, c, h, w = x.shape
-    ho, wo = _out_size(h, len(taps), pad), _out_size(w, len(taps), pad)
+                         f"got {k}")
+    n, c, h, w = shape
+    ho, wo = _out_size(h, k, pad), _out_size(w, k, pad)
     if min(n, c, h, w, ho, wo) < 1 or n * c >= 2 ** 31:
-        raise ValueError(f"fir_blur: empty or oversized blur: x {tuple(x.shape)}"
-                         f", {len(taps)} taps, pad {pad}")
+        raise ValueError(f"fir_blur: empty or oversized blur: x {tuple(shape)}"
+                         f", {k} taps, pad {pad}")
+    return ho, wo
 
 
 def _launch(x, taps, pad):
@@ -119,6 +128,28 @@ def _launch(x, taps, pad):
     if err != 0:
         raise RuntimeError(f"fir_blur kernel launch failed: cudaError {err}")
     return y
+
+
+def kernel_work(shape, k, pad, dtype):
+    """The bytes one launch of the kernel moves for an NCHW input of
+    ``shape`` (16-byte aligned) with ``k`` taps and ``pad``, as the kernel
+    source plans it: every 16-byte chunk it copies in (the halo rows read
+    again by the next tile included) and every element it writes. Launches
+    nothing."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"fir_blur: the kernel takes float32 or bfloat16, "
+                        f"got {dtype}")
+    if len(shape) != 4:
+        raise ValueError(f"fir_blur: shape must be NCHW, got {tuple(shape)}")
+    pad = (int(pad[0]), int(pad[1]))
+    ho, wo = _out_shape(shape, k, pad)
+    n, c, h, w = shape
+    out = ctypes.c_double()
+    err = _lib().fir_blur_work(k, n * c, h, w, ho, wo, pad[0],
+                               int(dtype == torch.bfloat16), ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"fir_blur_work failed: cudaError {err}")
+    return out.value
 
 
 def kernel_forward(x, taps, pad):

@@ -1,7 +1,10 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
 the SA-GAN attention (K1), the separable FIR blur (K2) and the fused
 modulation backward (K3), in float32 and bfloat16, at the largest shapes
-their paths give them and at ragged ones. K1's bfloat16 route (the
+their paths give them and at ragged ones. K2 is also held at every level of
+the StyleGAN2-cars-512 up path, at plane sides around its 16-byte runs, at
+1 to 8 taps with asymmetric pads, on inputs that start one element past a
+16-byte boundary, and for bitwise repeatability. K1's bfloat16 route (the
 tensor-core kernels) is also held at every head width it takes, on peaked
 logits that pin the masking of padded keys, for bitwise repeatability, and
 for the precision of its dS products against a float64 computation.
@@ -20,6 +23,7 @@ import torch
 from pix2latent_tpu_torch.ops import attention as A
 from pix2latent_tpu_torch.ops import fir_blur as FB
 from pix2latent_tpu_torch.ops import mod_backward as MB
+from pix2latent_tpu_torch.models.stylegan2 import channels_for
 
 pytestmark = pytest.mark.cuda
 
@@ -195,38 +199,105 @@ TAPS = (0.25, 0.75, 0.75, 0.25)   # [1, 3, 3, 1] / 8 * sqrt(4), the up-path blur
 # version round one f32 sum once and the sums differ only in operation order
 FIR_TOL = {torch.float32: ((0.0, 1e-5), (0.0, 1e-4)),
            torch.bfloat16: ((2.0 ** -7, 1e-5), (2.0 ** -7, 1e-5))}
+# the seven up-path blurs of StyleGAN2-cars-512 at n = 2: [2, ch(r), r+1, r+1]
+FIR_LEVELS = [((2, channels_for(r), r + 1, r + 1), (1, 1))
+              for r in (8, 16, 32, 64, 128, 256, 512)]
+# plane sides against the 16-byte runs and the strips: each as the height
+# and as the width, with pad (2, 1) so that the output keeps the size
+FIR_SIDES = (1, 2, 7, 8, 9, 15, 16, 17, 63, 64, 65, 511, 512, 513)
 FIR_CASES = [
     ((3, 5, 37, 41), (2, 1)),      # ragged planes, asymmetric pad
     ((2, 4, 9, 9), (1, 1)),        # the smallest path level (r = 8)
     ((22, 64, 513, 513), (1, 1)),  # the largest path level (r = 512)
-]
+] + FIR_LEVELS + [((2, 3, s, 17), (2, 1)) for s in FIR_SIDES] + [
+    ((2, 3, 9, s), (2, 1)) for s in FIR_SIDES]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape,pad", FIR_CASES)
-def test_fir_blur_kernel_matches_plain(cuda, shape, pad, dtype):
-    rng = np.random.RandomState(1)
+def _taps(k):
+    return TAPS if k == 4 else tuple(float(v) for v in np.linspace(0.1, 0.9, k))
+
+
+def _fir_inputs(shape, k, pad, dtype, device, offset=0, seed=1):
+    """x and the output gradient, made with numpy; with ``offset``, each a
+    contiguous view that starts ``offset`` elements into its buffer."""
+    rng = np.random.RandomState(seed)
     n, c, h, w = shape
-    ho, wo = h + sum(pad) - 3, w + sum(pad) - 3
-    x = torch.tensor(rng.randn(*shape).astype(np.float32), device=cuda).to(dtype)
-    cot = torch.tensor(rng.randn(n, c, ho, wo).astype(np.float32),
-                       device=cuda).to(dtype)
+    out = (n, c, h + sum(pad) - k + 1, w + sum(pad) - k + 1)
+
+    def mk(s):
+        buf = torch.tensor(rng.randn(int(np.prod(s)) + offset).astype(np.float32),
+                           device=device).to(dtype)
+        return buf[offset:].view(s)
+    return mk(shape), mk(out)
+
+
+def _fir_matches_plain(shape, pad, dtype, device, k=4, offset=0):
+    taps = _taps(k)
+    x, cot = _fir_inputs(shape, k, pad, dtype, device, offset)
+    assert x.is_contiguous() and cot.is_contiguous()
     FB.reset_launch_counts()
-    x_k = x.clone().requires_grad_(True)
-    y_k = FB.fir_blur(x_k, TAPS, pad)
+    x_k = x.clone() if offset == 0 else x.detach()
+    x_k.requires_grad_(True)
+    y_k = FB.fir_blur(x_k, taps, pad)
     y_k.backward(cot)
     x_r = x.clone().requires_grad_(True)
-    y_r = FB.fir_blur_reference(x_r, TAPS, pad)
+    y_r = FB.fir_blur_reference(x_r, taps, pad)
     y_r.backward(cot)
     torch.cuda.synchronize()
 
     assert FB.launch_counts() == {"fwd": 1, "bwd": 1}
-    assert y_k.dtype == dtype and y_k.shape == (n, c, ho, wo)
+    assert y_k.dtype == dtype and y_k.shape == cot.shape
     assert x_k.grad.dtype == dtype
     (rt_o, at_o), (rt_g, at_g) = FIR_TOL[dtype]
     torch.testing.assert_close(y_k.float(), y_r.float(), rtol=rt_o, atol=at_o)
     torch.testing.assert_close(x_k.grad.float(), x_r.grad.float(), rtol=rt_g,
                                atol=at_g)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,pad", FIR_CASES)
+def test_fir_blur_kernel_matches_plain(cuda, shape, pad, dtype):
+    _fir_matches_plain(shape, pad, dtype, cuda)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pad", [(0, 0), (2, 1), (0, 3), (3, 0)])
+@pytest.mark.parametrize("k", [1, 2, 3, 5, 8])
+def test_fir_blur_taps_and_pads_match_plain(cuda, k, pad, dtype):
+    _fir_matches_plain((2, 3, 19, 23), pad, dtype, cuda, k=k)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,pad", [((2, 3, 37, 41), (2, 1)),
+                                       ((2, 64, 513, 513), (1, 1))])
+def test_fir_blur_unaligned_input_matches_plain(cuda, shape, pad, dtype):
+    # x and the output gradient start one element past a 16-byte boundary
+    _fir_matches_plain(shape, pad, dtype, cuda, offset=1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fir_blur_kernel_is_deterministic(cuda, dtype):
+    x, cot = _fir_inputs((22, 64, 513, 513), 4, (1, 1), dtype, cuda)
+    runs = [(FB.kernel_forward(x, TAPS, (1, 1)),
+             FB.kernel_backward(cot, TAPS, (1, 1))) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b, name in zip(*runs, ("forward", "adjoint")):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,pad", FIR_LEVELS + [((3, 5, 37, 41), (2, 1))])
+def test_fir_blur_work_covers_the_minimum(cuda, shape, pad, dtype):
+    # each input read once and each output written once at the least
+    n, c, h, w = shape
+    size = 2 if dtype == torch.bfloat16 else 4
+    for s, p in ((shape, pad), ((n, c, h + sum(pad) - 3, w + sum(pad) - 3),
+                                (3 - pad[0], 3 - pad[1]))):
+        ho, wo = s[2] + sum(p) - 3, s[3] + sum(p) - 3
+        work = FB.kernel_work(s, 4, p, dtype)
+        assert work >= size * n * c * (s[2] * s[3] + ho * wo)
+        # the halo rows read again stay a small share at the path levels
+        assert work <= 1.25 * size * n * c * (s[2] * s[3] + ho * wo)
 
 
 def test_fir_blur_rejects_what_it_does_not_take(cuda):

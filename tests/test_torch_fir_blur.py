@@ -107,3 +107,16 @@ def test_tensors_off_the_cpu_never_reach_the_plain_version():
     with pytest.raises(ValueError, match="CUDA"):
         FB.kernel_backward(x, tuple(TAPS), (1, 1))
     assert FB.launch_counts() == {"fwd": 0, "bwd": 0}
+
+
+@pytest.mark.parametrize("shape,k,pad,dtype,error", [
+    ((1, 2, 8, 8), 4, (1, 1), torch.float16, TypeError),    # not f32 or bf16
+    ((2, 8, 8), 4, (1, 1), torch.float32, ValueError),      # not NCHW
+    ((1, 2, 8, 8), 9, (1, 1), torch.float32, ValueError),   # more than 8 taps
+    ((1, 2, 2, 2), 4, (0, 0), torch.bfloat16, ValueError),  # empty output
+])
+def test_kernel_work_checks_before_loading_the_kernel(shape, k, pad, dtype, error):
+    """kernel_work refuses what the kernel does not take before it loads the
+    kernel's library (which needs nvcc), so these raise on any machine."""
+    with pytest.raises(error):
+        FB.kernel_work(shape, k, pad, dtype)
