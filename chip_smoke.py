@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--generations G] [--final-steps F]
                           [--sg2-generations G] [--sg2-final-steps F]
+                          [--ffhq-generations G] [--ffhq-final-steps F]
 
 Phases, one JSON line each; any failure raises and exits non-zero:
 
@@ -31,7 +32,14 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      the depthwise conv, the bound and the bytes the kernel's plan moves
      (``*_design_bytes``, from ``fir_blur_work``), with sums over the levels;
    - the fused modulation backward (K3) at [22, 64, 512, 512], with the
-     tolerances of ``tests/test_mod_backward.py``.
+     tolerances of ``tests/test_mod_backward.py``;
+   - K2 and K3 at the largest shapes of ``ffhq_path`` (one 2-sample chunk):
+     K2 forward and adjoint at [2, 32, 1025, 1025] with pad (1, 1) (in
+     float32 the adjoint's 1025-wide rows are 257 sixteen-byte runs, which
+     the kernel cuts into column segments), K3 at [2, 32, 1024, 1024], both
+     types, timed as the cars shapes are; ``ffhq_fir_levels`` is
+     ``fir_levels`` for the eight blurs of ``ffhq_path`` ([2, ch(r), r+1,
+     r+1], r = 8 .. 1024).
    Times (CUDA events, median of 25 runs) of the kernel, the plain version
    and, where one PyTorch call computes the same function, that call
    (``scaled_dot_product_attention`` with ``scale=1.0`` for K1, one
@@ -43,7 +51,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 4. ``main_path``: BasinCMA inversion of the ``bench.py`` ramp target through
    BigGAN-deep-256 at full width (channel width 128) in bfloat16, under
    ProjectionLoss (masked L1 + 10 x LPIPS-alex), population 18, 30 inner
-   Adam steps per generation, random weights from a seed. The launch
+   Adam steps per generation, random weights from a seed; by default 10 of
+   the flagship's 30 generations and 100 of its 300 final steps (printed as
+   ``shortened``; ``sg2_path`` is cut the same way). The launch
    counters are set to 0 just before and read just after; they must equal
    one forward per inner step and per tell, one backward per inner step.
 5. ``whole_step``: one float32 forward and backward of generator + loss at
@@ -57,9 +67,30 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    forward (inner steps, tells and final steps) and per backward, 23
    modulation backwards per backward.
 7. ``sg2_whole_step``: as ``whole_step``, for the StyleGAN2 problem.
+8. ``ffhq_path``: BasinCMA inversion of the 1024x1024 ramp through StyleGAN2
+   FFHQ (config-f, channel multiplier 2, full width: 18 w layers, 17 noise
+   maps) in bfloat16 under ProjectionLoss without a mask, population 22, 30
+   inner Adam steps per generation, the Normalize + NormalPerturb(0.05) hook,
+   both StyleGAN2 kernels on, under the one-card recipe of
+   ``examples/invert_stylegan2_ffhq_basincma.py``: blocks from 256 px
+   recomputed in the backward (``remat_from_res`` 256) and microbatches of 2
+   (``max_batch_size`` 2, 11 chunks a step). Driven through
+   ``BasinCMAOptimizer.optimize_fused`` with a checkpoint in a temporary
+   directory, the host syncs of the call recorded by
+   ``torch.cuda.set_sync_debug_mode`` and told apart by whether they fall
+   inside a fused generation (there only the CMA tell's ``eigh`` may sync,
+   once a generation) or outside (the driver's loss reads and checkpoint
+   saves, printed). The launch counters are set to 0 just before and read just after:
+   see :func:`ffhq_expected_launches`. Then ``optimize_fused`` again on the
+   same checkpoint must resume at the end of the meta loop and of the final
+   run, running one evaluation and no step.
+9. ``ffhq_whole_step``: as ``whole_step``, for the FFHQ problem with remat
+   on.
 
-Then the ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line and the
-result line. It exits non-zero, printing no result, without a CUDA device or
+Then a ``done`` line with the script's seconds, the ``{"kernels": [...]}``
+line (each K2 and K3 entry twice: at the cars path's shapes with
+``sg2_path``'s launches, and, ``_ffhq``, at the FFHQ path's with
+``ffhq_path``'s), the card's ``nvidia-smi`` line and the result line. It exits non-zero, printing no result, without a CUDA device or
 without the package beside it.
 """
 
@@ -99,6 +130,10 @@ FLUSH_BYTES = 128 * 2 ** 20           # more than the 50 MB L2
 SLEEP_CYCLES = 200_000
 MOD_PATH = (22, 64, 512, 512)
 MOD_RAGGED = (3, 5, 7, 9)
+# FFHQ-1024 under the recipe: a 2-sample chunk at the 1024 level
+FFHQ_CHUNK = 2
+FIR_FFHQ = ((FFHQ_CHUNK, 32, 1025, 1025), (1, 1))
+MOD_FFHQ = (FFHQ_CHUNK, 32, 1024, 1024)
 # (rtol, atol) of g_x and of g_s, tests/test_mod_backward.py
 MOD_TOL = {"float32": ((1e-6, 0.0), (5e-5, 1e-5)),
            "bfloat16": ((2e-2, 1e-2), (2e-2, 1e-2))}
@@ -326,14 +361,14 @@ def _fir_case(shape, pad, dtype, timed):
     return case
 
 
-def sg2_blur_levels(im_res=512):
-    """(r, x shape) of the blur after each up-conv of StyleGAN2 at ``im_res``,
-    population 22: the transposed conv of a res r/2 input gives r + 1 rows
+def sg2_blur_levels(im_res=512, n=SG2_POP):
+    """(r, x shape) of the blur after each up-conv of StyleGAN2 at ``im_res``
+    on ``n`` samples: the transposed conv of a res r/2 input gives r + 1 rows
     and columns of ``channels_for(r)`` channels."""
     import math
 
     from pix2latent_tpu_torch.models.stylegan2 import channels_for
-    return [(2 ** i, (SG2_POP, channels_for(2 ** i), 2 ** i + 1, 2 ** i + 1))
+    return [(2 ** i, (n, channels_for(2 ** i), 2 ** i + 1, 2 ** i + 1))
             for i in range(3, int(math.log2(im_res)) + 1)]
 
 
@@ -357,10 +392,10 @@ def cold_ms(fn, flush, reps=15):
     return statistics.median(times)
 
 
-def _fir_levels(dtype):
-    """K2 at every level of ``sg2_path``, forward and adjoint: against the
-    plain version, and timed cold (L2 flushed) beside the depthwise conv,
-    the bound and the bytes the kernel's plan moves."""
+def _fir_levels(dtype, levels, kernel="fir_levels"):
+    """K2 at every level of a path (``sg2_blur_levels``), forward and
+    adjoint: against the plain version, and timed cold (L2 flushed) beside
+    the depthwise conv, the bound and the bytes the kernel's plan moves."""
     import torch
     import torch.nn.functional as F
     from pix2latent_tpu_torch.ops import fir_blur as FB
@@ -375,8 +410,8 @@ def _fir_levels(dtype):
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    levels, ok = [], True
-    for r, shape in sg2_blur_levels():
+    results, ok = [], True
+    for r, shape in levels:
         n, c, h, w = shape
         x = _randn(gen, shape, dtype)
         cot = _randn(gen, (n, c, r, r), dtype)
@@ -404,14 +439,14 @@ def _fir_levels(dtype):
             level[f"{key}_design_bytes"] = FB.kernel_work(
                 b.shape, k, pad if key == "fwd" else adj_pad, dtype)
         ok = ok and level["ok"]
-        levels.append(level)
+        results.append(level)
         del x, cot, y, dx, weight
-    case = {"kernel": "fir_levels", "dtype": name, "pad": list(pad),
+    case = {"kernel": kernel, "dtype": name, "pad": list(pad),
             "tol_out": [rt_o, at_o], "tol_grad": [rt_g, at_g],
-            "levels": levels, "ok": ok}
+            "levels": results, "ok": ok and len(results) == len(levels)}
     for key in ("fwd", "bwd"):
         for field in (f"{key}_ms", f"library_{key}_ms", f"{key}_bound_ms"):
-            case[f"sum_{field}"] = sum(lv[field] for lv in levels)
+            case[f"sum_{field}"] = sum(lv[field] for lv in results)
     del flush
     return case
 
@@ -465,10 +500,17 @@ def phase_kernels():
         cases.append(_fir_case(*FIR_PATH, dtype, timed=True))
         cases.append(_fir_case(*FIR_RAGGED, dtype, timed=False))
         torch.cuda.empty_cache()
-        cases.append(_fir_levels(dtype))
+        cases.append(_fir_levels(dtype, sg2_blur_levels()))
         torch.cuda.empty_cache()
         cases.append(_mod_case(MOD_PATH, dtype, timed=True))
         cases.append(_mod_case(MOD_RAGGED, dtype, timed=False))
+        torch.cuda.empty_cache()
+        cases.append(dict(_fir_case(*FIR_FFHQ, dtype, timed=True),
+                          path="ffhq_path"))
+        cases.append(_fir_levels(dtype, sg2_blur_levels(1024, FFHQ_CHUNK),
+                                 "ffhq_fir_levels"))
+        cases.append(dict(_mod_case(MOD_FFHQ, dtype, timed=True),
+                          path="ffhq_path"))
         torch.cuda.empty_cache()
     emit({"phase": "kernels",
           "kernels": ["sagan_attention_fwd", "sagan_attention_bwd",
@@ -500,7 +542,7 @@ def phase_main_path(generations, final_steps):
     seconds = time.perf_counter() - t0
     counts = A.launch_counts()
 
-    out = outs[0]
+    out = opt.out
     tell_mins = opt.losses
     final_min = float(final[0][1]["loss"].min())
     expect = {"fwd": generations * (GRAD_STEPS + 1) + final_steps,
@@ -519,7 +561,7 @@ def phase_main_path(generations, final_steps):
         "seconds_per_generation": gen_s,
         "images_per_sec": opt.num_samples * GRAD_STEPS / gen_s,
         "tell_min_per_generation": tell_mins, "final_min_loss": final_min,
-        "out_shape": list(out.shape),
+        "out_shape": list(out.shape), "collage_shape": list(outs[0].shape),
         "attention_launches": counts, "expected_launches": expect,
         "peak_memory_bytes": torch.cuda.max_memory_allocated()}
     emit(result)
@@ -608,7 +650,7 @@ def phase_sg2_path(generations, final_steps):
     backwards = generations * GRAD_STEPS + final_steps
     expect = {"fir_blur_fwd": 7 * forwards, "fir_blur_bwd": 7 * backwards,
               "mod_backward": 23 * backwards}
-    out = outs[0]
+    out = opt.out
     tell_mins = opt.losses
     final_min = float(final[0][1]["loss"].min())
     steady = opt.gen_seconds[1:] or opt.gen_seconds
@@ -625,13 +667,13 @@ def phase_sg2_path(generations, final_steps):
         "seconds_per_generation": gen_s,
         "images_per_sec": opt.num_samples * GRAD_STEPS / gen_s,
         "tell_min_per_generation": tell_mins, "final_min_loss": final_min,
-        "out_shape": list(out.shape), "launches": counts,
-        "expected_launches": expect,
+        "out_shape": list(out.shape), "collage_shape": list(outs[0].shape),
+        "launches": counts, "expected_launches": expect,
         "peak_memory_bytes": torch.cuda.max_memory_allocated()}
     emit(result)
     assert opt.num_samples == SG2_POP, opt.num_samples
     assert tuple(out.shape) == (SG2_POP, 512, 512, 3), out.shape
-    assert bool(torch.isfinite(torch.as_tensor(out)).all())
+    assert bool(torch.isfinite(out).all())
     assert all(math.isfinite(v) for v in tell_mins), tell_mins
     assert math.isfinite(final_min) and final_min < tell_mins[0], (
         f"no convergence: first generation {tell_mins[0]}, final {final_min}")
@@ -650,13 +692,217 @@ def phase_sg2_whole_step():
                 {"z": torch.randn(2, 512, generator=gen)})
 
 
+def ffhq_expected_launches(generations, final_steps, chunks):
+    """K2 and K3 launches of ``ffhq_path``, counted from the code: a step,
+    a tell and a final step run the population in ``chunks`` microbatches.
+    Per chunk, a forward blurs once per up-conv (8 levels, r = 8 .. 1024);
+    a backward runs the 8 adjoint blurs, recomputes the forward of the
+    blocks from 256 px (``remat_from_res``), whose up-convs blur again (r =
+    256, 512, 1024: 3 forward launches), and runs one modulation backward
+    per modulated conv: 26 (conv1, to_rgb1, and at each of the 8 levels the
+    up-conv, the conv and to_rgb). A tell forward runs without gradients:
+    no recompute, no backward."""
+    backwards = chunks * (generations * GRAD_STEPS + final_steps)
+    forwards = chunks * (generations * (GRAD_STEPS + 1) + final_steps)
+    return {"fir_blur_fwd": 8 * forwards + 3 * backwards,
+            "fir_blur_bwd": 8 * backwards, "mod_backward": 26 * backwards}
+
+
+def _kernel_counts():
+    from pix2latent_tpu_torch.ops import fir_blur as FB
+    from pix2latent_tpu_torch.ops import mod_backward as MB
+    return {"fir_blur_fwd": FB.launch_counts()["fwd"],
+            "fir_blur_bwd": FB.launch_counts()["bwd"],
+            "mod_backward": MB.launch_counts()["bwd"]}
+
+
+def _sync_site():
+    """Where a host sync was asked for: the innermost frame in this
+    repository's package, as ``file:line``; the innermost frame of all,
+    with its source line; and whether it was inside a fused generation
+    (``optimizers/cma_base.py``'s ``generation``)."""
+    import linecache
+    import traceback
+
+    stack = [f for f in traceback.extract_stack()      # not this script's
+             if not f.filename.endswith(("warnings.py", "chip_smoke.py"))]
+    ours = [f for f in stack if "pix2latent_tpu_torch" in f.filename]
+    site = ours[-1] if ours else stack[-1]
+    last = stack[-1]
+    in_generation = any(f.name == "generation"
+                        and f.filename.endswith("cma_base.py") for f in ours)
+    return (f"{Path(site.filename).name}:{site.lineno}",
+            f"{last.filename}:{last.lineno}: "
+            f"{linecache.getline(last.filename, last.lineno).strip()}",
+            in_generation)
+
+
+class _RecordSyncs:
+    """A block run with ``torch.cuda``'s sync debug mode on: each host sync
+    made in it goes to ``self.sites`` as :func:`_sync_site` gives it."""
+
+    def __enter__(self):
+        import warnings
+
+        import torch
+        self.sites = []
+        self._warnings = warnings.catch_warnings()
+        self._warnings.__enter__()
+        warnings.simplefilter("always")
+
+        def hook(message, *args, **kwargs):
+            if "called a synchronizing CUDA operation" in str(message):
+                self.sites.append(_sync_site())
+        warnings.showwarning = hook
+        torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        torch.cuda.set_sync_debug_mode("default")
+        self._warnings.__exit__(*exc)
+        return False
+
+    def count(self, in_generation):
+        """{site: number of syncs there}, inside the fused generations or
+        outside them."""
+        sites = [s for s, _, g in self.sites if g == in_generation]
+        return {site: sites.count(site) for site in sorted(set(sites))}
+
+
+def phase_ffhq_path(generations, final_steps):
+    import math
+    import tempfile
+
+    import torch
+    from pix2latent_tpu_torch.ops import fir_blur as FB
+    from pix2latent_tpu_torch.ops import mod_backward as MB
+    from pix2latent_tpu_torch.optimizers import BasinCMAOptimizer
+    from pix2latent_tpu_torch.strategies import cma
+    from pix2latent_tpu_torch.utils.flagship import FFHQ_RECIPE, build_ffhq
+
+    def make_opt():
+        model, loss_fn, vm = build_ffhq(torch.bfloat16, "cuda")
+        opt = BasinCMAOptimizer(model, vm, loss_fn, seed=0, device="cuda",
+                                max_batch_size=FFHQ_RECIPE["max_batch_size"])
+        return model, opt
+
+    model, opt = make_opt()
+    chunks = -(-SG2_POP // FFHQ_RECIPE["max_batch_size"])
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = str(Path(tmp) / "ffhq.npz")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        FB.reset_launch_counts()
+        MB.reset_launch_counts()
+        t0 = time.perf_counter()
+        with _RecordSyncs() as syncs:
+            variables, outs, final = opt.optimize_fused(
+                generations, GRAD_STEPS, last_grad_steps=final_steps,
+                checkpoint_path=ckpt)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = _kernel_counts()
+        peak = torch.cuda.max_memory_allocated()
+        first_state, first_z = opt.cma_state, variables["input"]["z"].detach()
+
+        # resume: the meta loop and the final run are finished on disk
+        _, opt2 = make_opt()
+        FB.reset_launch_counts()
+        MB.reset_launch_counts()
+        t1 = time.perf_counter()
+        variables2, _, final2 = opt2.optimize_fused(
+            generations, GRAD_STEPS, last_grad_steps=final_steps,
+            checkpoint_path=ckpt)
+        torch.cuda.synchronize()
+        resume = {"seconds": time.perf_counter() - t1,
+                  "generations_run": len(opt2.gen_seconds),
+                  "launches": _kernel_counts(),
+                  "cma_state_equal": all(
+                      torch.equal(a, b) for a, b in zip(opt2.cma_state,
+                                                        first_state)),
+                  "variables_equal": torch.equal(
+                      variables2["input"]["z"].detach(), first_z),
+                  "final_min_loss": float(final2[0][1]["loss"].min())}
+
+    out = opt.out
+    tell_mins = opt.losses
+    final_min = float(final[0][1]["loss"].min())
+    steady = opt.gen_seconds[1:] or opt.gen_seconds
+    gen_s = statistics.mean(steady)
+    expect = ffhq_expected_launches(generations, final_steps, chunks)
+    g = model.generator
+    sync_sites = syncs.count(in_generation=True)
+    eigh_site = "cma.py:{}".format(next(
+        i + 1 for i, line in enumerate(
+            Path(cma.__file__).read_text().splitlines())
+        if "torch.linalg.eigh(C)" in line))
+    result = {
+        "phase": "ffhq_path", "model": "stylegan2-ffhq-1024",
+        "channel_multiplier": 2, "w_layers": g.num_layers + 1,
+        "noise_maps": g.num_layers, "dtype": "bfloat16",
+        "population": opt.num_samples, "grad_steps": GRAD_STEPS,
+        "remat_from_res": g.remat_from_res,
+        "max_batch_size": opt.max_batch_size, "chunks_per_step": chunks,
+        "driver": "optimize_fused", "generations": generations,
+        "final_steps": final_steps,
+        "schedule": (f"{generations} generations x {GRAD_STEPS} steps + "
+                     f"{final_steps} final steps (the example: 30 x 30 + "
+                     "300)"),
+        "seconds": seconds, "gen_seconds": opt.gen_seconds,
+        "seconds_per_generation": gen_s,
+        "images_per_sec": opt.num_samples * GRAD_STEPS / gen_s,
+        "tell_min_per_generation": tell_mins, "final_min_loss": final_min,
+        "out_shape": list(out.shape), "collage_shape": list(outs[0].shape),
+        "launches": counts, "expected_launches": expect,
+        "syncs_in_fused_generations": sync_sites,
+        "syncs_outside_generations": syncs.count(in_generation=False),
+        "sync_frames": sorted({frame for _, frame, _ in syncs.sites}),
+        "peak_memory_bytes": peak, "resume": resume}
+    emit(result)
+    assert opt.num_samples == SG2_POP, opt.num_samples
+    assert bool(torch.isfinite(out).all())
+    assert len(tell_mins) == generations, tell_mins
+    assert all(math.isfinite(v) for v in tell_mins), tell_mins
+    assert math.isfinite(final_min) and final_min < tell_mins[0], (
+        f"no convergence: first generation {tell_mins[0]}, final {final_min}")
+    assert counts == expect, (counts, expect)
+    assert all(v > 0 for v in counts.values()), counts
+    assert resume["generations_run"] == 0
+    assert resume["launches"] == {"fir_blur_fwd": 8 * chunks,
+                                  "fir_blur_bwd": 0, "mod_backward": 0}
+    assert resume["cma_state_equal"] and resume["variables_equal"], resume
+    assert math.isfinite(resume["final_min_loss"])
+    # one eigh sync per generation, and no other sync
+    assert sync_sites == {eigh_site: generations}, sync_sites
+    assert (g.im_res, g.num_layers, g.remat_from_res, opt.max_batch_size) \
+        == (1024, 17, 256, 2)
+    assert tuple(out.shape) == (SG2_POP, 1024, 1024, 3), out.shape
+    return counts
+
+
+def phase_ffhq_whole_step():
+    import torch
+    from pix2latent_tpu_torch.utils.flagship import build_ffhq
+
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(1)
+    _whole_step("ffhq_whole_step", build_ffhq,
+                {"z": torch.randn(2, 512, generator=gen)})
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--generations", type=int, default=30)
     ap.add_argument("--final-steps", type=int, default=300)
     ap.add_argument("--sg2-generations", type=int, default=30)
     ap.add_argument("--sg2-final-steps", type=int, default=300)
+    ap.add_argument("--ffhq-generations", type=int, default=3)
+    # a longer finish than a generation's 30 steps: at 30 the final loss
+    # came within 1 % of the first generation's on the card
+    ap.add_argument("--ffhq-final-steps", type=int, default=100)
     args = ap.parse_args(argv)
+    t0 = time.perf_counter()
 
     try:
         import torch
@@ -679,28 +925,37 @@ def main(argv=None):
     phase_whole_step()
     sg2_counts = phase_sg2_path(args.sg2_generations, args.sg2_final_steps)
     phase_sg2_whole_step()
+    ffhq_counts = phase_ffhq_path(args.ffhq_generations,
+                                  args.ffhq_final_steps)
+    phase_ffhq_whole_step()
 
-    def timed_bf16(kernel):      # the bf16 case at the path's shape
+    def timed_bf16(kernel, path):   # the bf16 case at the path's shape
         return next(c for c in cases if c["kernel"] == kernel
                     and c["dtype"] == "bfloat16"
                     and ("ms" in c or "fwd_ms" in c)
+                    and c.get("path", "main") == path
                     and (kernel != "sagan_attention"
                          or tuple(c["shape"]) == FLAGSHIP))
 
     kernels = []
-    for kernel, launches, src, site in (
-            ("sagan_attention", counts, "sagan_attention.cu",
+    for kernel, path, suffix, launches, src, site in (
+            ("sagan_attention", "main", "", counts, "sagan_attention.cu",
              {"fwd": "attention.py:131", "bwd": "attention.py:154"}),
-            ("fir_blur", {"fwd": sg2_counts["fir_blur_fwd"],
-                          "bwd": sg2_counts["fir_blur_bwd"]},
+            ("fir_blur", "main", "", {"fwd": sg2_counts["fir_blur_fwd"],
+                                      "bwd": sg2_counts["fir_blur_bwd"]},
+             "fir_blur.cu", {"fwd": "pallas_fir.py:108",
+                             "bwd": "pallas_fir.py:108"}),
+            ("fir_blur", "ffhq_path", "_ffhq",
+             {"fwd": ffhq_counts["fir_blur_fwd"],
+              "bwd": ffhq_counts["fir_blur_bwd"]},
              "fir_blur.cu", {"fwd": "pallas_fir.py:108",
                              "bwd": "pallas_fir.py:108"})):
-        case = timed_bf16(kernel)
+        case = timed_bf16(kernel, path)
         for key in ("fwd", "bwd"):
             extra = ({"design": case["design"]}
                      if kernel == "sagan_attention" else {})
             kernels.append({
-                "name": f"{kernel}_{key}", "route": "cuda",
+                "name": f"{kernel}_{key}{suffix}", "route": "cuda",
                 "source": f"pix2latent_tpu_torch/csrc/{src}",
                 "replaces": f"pix2latent_tpu/ops/{site[key]}",
                 "launches": launches[key],
@@ -709,15 +964,18 @@ def main(argv=None):
                 "bound_ms": case[f"{key}_bound_ms"],
                 "bound_by": case[f"{key}_bound_by"],
                 "library_ms": case[f"library_{key}_ms"], **extra})
-    case = timed_bf16("mod_backward")
-    kernels.append({
-        "name": "mod_backward", "route": "cuda",
-        "source": "pix2latent_tpu_torch/csrc/mod_backward.cu",
-        "replaces": "pix2latent_tpu/ops/mod_backward.py:97",
-        "launches": sg2_counts["mod_backward"],
-        "max_abs_err": case["max_abs_err"], "ms": case["ms"],
-        "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
-        "bound_by": case["bound_by"], "library_ms": case["library_ms"]})
+    for path, suffix, launches in (("main", "", sg2_counts),
+                                   ("ffhq_path", "_ffhq", ffhq_counts)):
+        case = timed_bf16("mod_backward", path)
+        kernels.append({
+            "name": f"mod_backward{suffix}", "route": "cuda",
+            "source": "pix2latent_tpu_torch/csrc/mod_backward.cu",
+            "replaces": "pix2latent_tpu/ops/mod_backward.py:97",
+            "launches": launches["mod_backward"],
+            "max_abs_err": case["max_abs_err"], "ms": case["ms"],
+            "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
+            "bound_by": case["bound_by"], "library_ms": case["library_ms"]})
+    emit({"phase": "done", "seconds": time.perf_counter() - t0})
     emit({"kernels": kernels})
     print(env["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -15,15 +15,28 @@ variable names are the loss's keywords.
 (:func:`chunk_spec`): each chunk runs its forward and backward in turn, so
 peak activation memory is one chunk's, and each chunk's gradient is scaled
 by ``chunk / pop`` so that the sum equals the whole population's.
+
+``segment_steps`` cuts a gradient run longer than that into segments of that
+many steps; with ``checkpoint_path`` every run is segmented and the state
+entering a segment (variables, optimizer state, the generator's state,
+steps done) is saved, so a crashed run resumes on its own trajectory. The
+steps draw from the generator in order, so a segmented run is the
+unsegmented run step for step.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
+
+import numpy as np
 
 import torch
 
 from pix2latent_tpu_torch.models.base import as_model
+from pix2latent_tpu_torch.utils.checkpoint import (checkpoint_exists,
+                                                   load_checkpoint,
+                                                   save_checkpoint)
+from pix2latent_tpu_torch.utils.misc import cprint, to_numpy
 from pix2latent_tpu_torch.variables import (VariableManager,
                                             VariableOptimizer, Variables)
 
@@ -74,11 +87,45 @@ class ExecutionCore:
     """Runs the inner steps and the tell evaluations of one problem."""
 
     def __init__(self, model, var_manager: VariableManager, loss_fn: Callable,
-                 max_batch_size: Optional[int] = None):
+                 max_batch_size: Optional[int] = None,
+                 track_variables: bool = False,
+                 segment_steps: Optional[int] = 50):
         self.model = as_model(model)
         self.var_manager = var_manager
         self.loss_fn = loss_fn
         self.max_batch_size = max_batch_size
+        self.track_variables = track_variables
+        self.segment_steps = segment_steps
+        # transform registry: target variable name -> {fn, param name}
+        self.transform_fns: Dict[str, dict] = {}
+
+    # ------------------------------------------------------------------ #
+    # transforms                                                         #
+    # ------------------------------------------------------------------ #
+
+    def register_transform(self, transform_fn, transform_var_name: str,
+                           target_var_name: str):
+        """Warp ``target_var`` by the ``transform_var`` parameter before the
+        inner loop: ``transform_fn(target, param)``."""
+        self.transform_fns[target_var_name] = {
+            "fn": transform_fn,
+            "transform_param": transform_var_name,
+            "target_var": target_var_name,
+        }
+
+    def apply_transforms(self, variables: Variables) -> Variables:
+        """New variables with each registered target warped by its
+        transform; ``variables`` itself when none is registered."""
+        if not self.transform_fns:
+            return variables
+        info = self.var_manager.variable_info
+        out = {vt: dict(d) for vt, d in variables.items()}
+        for dst_name, td in self.transform_fns.items():
+            src_type = info[td["transform_param"]]["var_type"]
+            dst_type = info[dst_name]["var_type"]
+            t = out[src_type][td["transform_param"]]
+            out[dst_type][dst_name] = td["fn"](out[dst_type][dst_name], t)
+        return out
 
     # ------------------------------------------------------------------ #
     # forward / loss                                                     #
@@ -95,7 +142,9 @@ class ExecutionCore:
         for name, data in outputs.items():
             spec = info[name]
             if (spec["default"] is not None and not spec["requires_grad"]
-                    and spec["hook_fn"] is None and data.shape[0] != 1):
+                    and spec["hook_fn"] is None
+                    and name not in self.transform_fns
+                    and data.shape[0] != 1):
                 out["output"][name] = data[:1]
         return out
 
@@ -207,25 +256,126 @@ class ExecutionCore:
         return out
 
     def grad_steps(self, variables: Variables, optimizer: VariableOptimizer,
-                   generator, n_steps: int, start_step: int = 0, ctx=None):
+                   generator, n_steps: int, start_step: int = 0, ctx=None,
+                   track: Optional[bool] = None, checkpoint_path=None,
+                   checkpoint_every: int = 1):
         """``n_steps`` hook / forward / backward / optimizer steps.
 
         ``variables`` and ``optimizer`` come from :meth:`init_opt_state`;
         ``ctx`` is a :meth:`make_ctx` result (computed here when None).
-        Returns ``(variables, optimizer, out, {"loss": [n_steps, pop]})``
-        with the per-sample losses each step's forward saw."""
+        Runs longer than ``segment_steps``, and every run with a
+        ``checkpoint_path``, go by segments (:meth:`_grad_steps_segmented`).
+        Returns ``(variables, optimizer, out, ys)``: ``ys["loss"]`` holds the
+        per-sample losses each step's forward saw, ``[n_steps, pop]`` (the
+        steps after the resume point when resuming), and with ``track``
+        (default ``track_variables``) ``ys["tracked"]`` the input variables
+        after each step, ``{name: [n_steps, pop, ...]}``."""
+        track = self.track_variables if track is None else bool(track)
+        n_steps = int(n_steps)
         variables = self._dedupe_outputs(variables)
         if ctx is None:
             ctx = self.make_ctx(variables)
-        losses, out = [], None
-        for i in range(int(n_steps)):
+        seg = self.segment_steps
+        if not checkpoint_path and (not seg or n_steps <= seg):
+            return self._run_steps(variables, optimizer, generator, n_steps,
+                                   start_step, ctx, track)
+        return self._grad_steps_segmented(
+            variables, optimizer, generator, n_steps, int(start_step), ctx,
+            track, int(seg) if seg else n_steps, checkpoint_path,
+            max(int(checkpoint_every), 1))
+
+    def _run_steps(self, variables, optimizer, generator, n_steps, start_step,
+                   ctx, track):
+        losses, tracked, out = [], [], None
+        for i in range(n_steps):
             variables = self._hook_in_place(generator, variables,
                                             start_step + i)
             optimizer.zero_grad()
             per_sample, out = self._forward_backward(variables, ctx)
             optimizer.step()
             losses.append(per_sample)
-        return variables, optimizer, out, {"loss": torch.stack(losses)}
+            if track:
+                tracked.append({name: t.detach().clone() for name, t in
+                                variables.get("input", {}).items()})
+        ys = {"loss": torch.stack(losses)}
+        if track:
+            ys["tracked"] = {name: torch.stack([t[name] for t in tracked])
+                             for name in tracked[0]}
+        return variables, optimizer, out, ys
+
+    def _carry(self, variables, optimizer, generator, done, template=False):
+        """What a segmented run saves: the state entering a segment."""
+        return {"variables": variables,
+                "optimizer": (optimizer.state_template() if template
+                              else optimizer.state()),
+                "generator": generator.get_state(),
+                "done": (torch.zeros((), dtype=torch.int32) if template
+                         else np.int32(done))}
+
+    def _grad_steps_segmented(self, variables, optimizer, generator, n_steps,
+                              start_step, ctx, track, seg, ckpt_path,
+                              ckpt_every):
+        """:meth:`grad_steps` by segments of ``seg`` steps.
+
+        With ``ckpt_path``, the state entering every ``ckpt_every``-th
+        segment is written before it runs (the file always holds the state
+        entering the running segment or an earlier one, as the JAX package's
+        one-behind write does), and the finished run's state after the last
+        step. A checkpoint found at the start is resumed: its variables are
+        copied into the optimizer's tensors and its optimizer and generator
+        states loaded, so the rest of the run is the uninterrupted run's. A
+        finished checkpoint runs no step: one evaluation gives ``out`` and
+        the loss (its hook draw is one the uninterrupted run did not make).
+        Tracked variables are read to the host after each segment."""
+        done = 0
+        if checkpoint_exists(ckpt_path):
+            saved = load_checkpoint(ckpt_path, self._carry(
+                variables, optimizer, generator, 0, template=True))
+            done = int(saved["done"])
+            variables = self._restore(variables, saved["variables"])
+            optimizer.load_state(saved["optimizer"])
+            generator.set_state(saved["generator"])
+            cprint(f"(checkpoint) resumed gradient run at step {done}"
+                   f"/{n_steps}", "y")
+        if done >= n_steps:
+            out, loss = self.eval(variables, generator,
+                                  step=start_step + n_steps - 1)
+            return variables, optimizer, out, {"loss": loss[None]}
+
+        losses, tracked, out = [], [], None
+        for si, s0 in enumerate(range(done, n_steps, seg)):
+            if ckpt_path and si % ckpt_every == 0:
+                save_checkpoint(ckpt_path, self._carry(
+                    variables, optimizer, generator, s0))
+            variables, optimizer, out, ys = self._run_steps(
+                variables, optimizer, generator, min(seg, n_steps - s0),
+                start_step + s0, ctx, track)
+            losses.append(ys["loss"])
+            if track:
+                tracked.append({k: to_numpy(v)
+                                for k, v in ys["tracked"].items()})
+        if ckpt_path:
+            save_checkpoint(ckpt_path, self._carry(
+                variables, optimizer, generator, n_steps))
+        ys = {"loss": torch.cat(losses)}
+        if track:
+            ys["tracked"] = {k: np.concatenate([t[k] for t in tracked])
+                             for k in tracked[0]}
+        return variables, optimizer, out, ys
+
+    def _restore(self, variables: Variables, saved: Variables) -> Variables:
+        """``variables`` with the saved values: copied into the optimizer's
+        leaf tensors, replacing the frozen ones."""
+        out = {vt: dict(d) for vt, d in variables.items()}
+        with torch.no_grad():
+            for vt, d in saved.items():
+                for name, value in d.items():
+                    old = variables[vt][name]
+                    if old.requires_grad:
+                        old.copy_(value)
+                    else:
+                        out[vt][name] = value
+        return out
 
     def eval(self, variables: Variables, generator, step=0):
         """Hooks + forward + per-sample loss, no updates: ``(out, loss)``."""
@@ -240,8 +390,12 @@ class ExecutionCore:
         """Fresh per-sample loss for the CMA tell: hooks applied to a copy,
         then a forward without gradients. ``inverted`` names the JAX
         package's un-warped frame, which differs only when a transform is
-        registered; the port has no transforms yet, so both frames agree."""
-        del inverted
+        registered; that frame comes with the transforms, in a later slice
+        of the port."""
+        if inverted and self.transform_fns:
+            raise NotImplementedError(
+                "the un-warped tell frame of a registered transform is not "
+                "ported yet")
         with torch.no_grad():
             variables = self._dedupe_outputs(variables)
             variables = self.var_manager.apply_hooks(generator, variables, step)

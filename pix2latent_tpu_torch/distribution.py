@@ -17,6 +17,15 @@ def _normal(generator, num_samples, shape):
                        device=generator.device, dtype=torch.float32)
 
 
+def _shift(x, mu):
+    """``x + mu``. A Python number is added as a scalar: a number turned
+    into a device tensor is a host-to-device copy, which waits for the
+    device."""
+    if isinstance(mu, (int, float)):
+        return x + mu
+    return x + torch.as_tensor(mu, dtype=x.dtype, device=x.device)
+
+
 class Distribution:
     def __call__(self, generator, num_samples, shape):
         raise NotImplementedError
@@ -34,8 +43,7 @@ class TruncatedNormalModulo(Distribution):
 
     def __call__(self, generator, num_samples, shape):
         x = self.sigma * _normal(generator, num_samples, shape)
-        mu = torch.as_tensor(self.mu, dtype=x.dtype, device=x.device)
-        return torch.fmod(x + mu, self.trunc)
+        return torch.fmod(_shift(x, self.mu), self.trunc)
 
     def __repr__(self):
         return (f"TruncatedNormalModulo(mu={self.mu}, sigma={self.sigma}, "
@@ -66,9 +74,8 @@ class Normal(Distribution):
         self.mu = mu if hasattr(mu, "shape") else float(mu)
 
     def __call__(self, generator, num_samples, shape):
-        x = _normal(generator, num_samples, shape)
-        mu = torch.as_tensor(self.mu, dtype=x.dtype, device=x.device)
-        return mu + self.sigma * x
+        return _shift(self.sigma * _normal(generator, num_samples, shape),
+                      self.mu)
 
     def __repr__(self):
         mu = "array" if hasattr(self.mu, "shape") else self.mu

@@ -1,0 +1,189 @@
+"""Shared example harness (counterpart of the JAX package's
+``examples/common.py``): the argument parser, model and target loading, the
+canonical variable registration, the loss and the result file.
+
+Every example runs offline: random weights from a seed unless
+``--checkpoint`` names a converted ``.npz`` or a rosinality ``g_ema``
+checkpoint, and a synthetic self-generated target. Reading a target image,
+a mask, or writing images and videos needs the image codecs, which are not
+ported yet: ``--fp``, ``--mask_fp`` and ``--make_video`` raise.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import os.path as osp
+import warnings
+
+import numpy as np
+import torch
+
+import pix2latent_tpu_torch.loss_functions as LF
+from pix2latent_tpu_torch import distribution as dist
+from pix2latent_tpu_torch import hooks
+from pix2latent_tpu_torch.utils.misc import to_numpy
+
+NOT_PORTED = ("fp", "mask_fp", "make_video")
+
+
+def base_parser(desc, model="biggan"):
+    p = argparse.ArgumentParser(description=desc)
+    p.add_argument("--fp", type=str, default=None,
+                   help="target image path (not ported yet: the synthetic "
+                        "target is used)")
+    p.add_argument("--mask_fp", type=str, default=None,
+                   help="mask image path (not ported yet)")
+    p.add_argument("--class_lbl", type=int, default=153)
+    p.add_argument("--lr", type=float, default=0.05)
+    p.add_argument("--latent_noise", type=float, default=0.05)
+    p.add_argument("--truncate", type=float, default=2.0)
+    p.add_argument("--make_video", action="store_true",
+                   help="log frames and write a video (not ported yet)")
+    p.add_argument("--num_samples", type=int, default=9)
+    p.add_argument("--max_minibatch", type=int, default=None,
+                   help="population microbatch size: bounds peak activation "
+                        "memory by running the population in chunks (the "
+                        "FFHQ-1024 x pop-22 recipe uses 2); None runs the "
+                        "population whole")
+    p.add_argument("--checkpoint", type=str, default=None,
+                   help="pretrained weights: a converted .npz or a "
+                        "rosinality torch checkpoint")
+    p.add_argument("--save_dir", type=str, default=None)
+    p.add_argument("--smoke", action="store_true",
+                   help="tiny budgets for a fast sanity run")
+    p.add_argument("--active_cma", action="store_true",
+                   help="aCMA negative-weight covariance updates")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="cuda (default) or cpu")
+    if model == "stylegan2":
+        p.add_argument("--model", type=str, default="cars",
+                       choices=["cars", "ffhq"])
+        p.add_argument("--search", type=str, default="z",
+                       choices=["z", "w+"])
+        p.add_argument("--bf16", action="store_true",
+                       help="bfloat16 generator compute")
+        p.add_argument("--remat_from_res", type=int, default=0,
+                       help="recompute synthesis blocks >= this resolution "
+                            "in the backward pass (FFHQ-1024 recipe: "
+                            "--bf16 --remat_from_res 256 --max_minibatch 2)")
+    return p
+
+
+def check_ported(args):
+    """Raise on the options that need the image codecs."""
+    for name in NOT_PORTED:
+        if getattr(args, name, None):
+            raise NotImplementedError(
+                f"--{name} is not ported yet: it needs the image codecs of "
+                "utils/image.py and utils/video.py, which a later part of "
+                "the port brings")
+
+
+def load_stylegan2(args):
+    """StyleGAN2 as the JAX package's ``load_stylegan2`` builds it: the
+    hand-written kernels' flags at their defaults (off)."""
+    from pix2latent_tpu_torch.models.stylegan2 import StyleGAN2
+    kwargs = dict(
+        search=args.search,
+        dtype=torch.bfloat16 if getattr(args, "bf16", False) else torch.float32,
+        remat_from_res=getattr(args, "remat_from_res", 0),
+        device=args.device)
+    with warnings.catch_warnings():
+        if args.checkpoint:
+            return StyleGAN2(args.model, pretrained_path=args.checkpoint,
+                             **kwargs)
+        warnings.simplefilter("ignore")
+        return StyleGAN2(args.model, **kwargs)
+
+
+def load_target(args, model):
+    """Target and weight, NHWC [im, im, 3] in [-1, 1]: the synthetic
+    self-generated target (the image of a z drawn from a generator seeded
+    1, through the z path even in w+ search) and a weight of ones."""
+    print("no --fp given: using a synthetic self-generated target")
+    gen = torch.Generator(device=model.device).manual_seed(1)
+    z = torch.randn((1, 512), generator=gen, device=model.device)
+    with torch.no_grad():
+        target = model.generator(z).clamp(-1.0, 1.0).permute(0, 2, 3, 1)[0]
+    return target, torch.ones_like(target)
+
+
+def register_stylegan2_vars(vm, model, args, target, weight, loss_mask=None):
+    """The canonical StyleGAN2 registration. ``--search w+`` searches the w
+    latent, started at the mean latent without the Normalize hook, plus the
+    flattened per-layer noise vector as an Adam-only variable."""
+    im = target.shape[0]
+    if getattr(args, "search", "z") == "w+":
+        w_mean, w_std = model.latent_stats()
+        # sigma floor: a random-init mapping network collapses w
+        w_sigma = max(0.1 * float(w_std), 0.05)
+        gf = getattr(args, "grad_free", False)
+        if gf is True:
+            gf = (to_numpy(w_mean), w_sigma)
+        vm.register("z", shape=(512,), var_type="input", grad_free=gf,
+                    distribution=dist.Normal(mu=w_mean, sigma=w_sigma),
+                    learning_rate=args.lr,
+                    hook_fn=hooks.NormalPerturb(args.latent_noise))
+        vm.register("noises", shape=(model.noise_dim(),), var_type="input",
+                    learning_rate=0.01,
+                    default=np.zeros((model.noise_dim(),), np.float32))
+    else:
+        vm.register("z", shape=(512,), var_type="input",
+                    grad_free=getattr(args, "grad_free", False),
+                    distribution=dist.Normal(sigma=1.0),
+                    learning_rate=args.lr,
+                    hook_fn=hooks.Compose(
+                        hooks.Normalize(),
+                        hooks.NormalPerturb(args.latent_noise)))
+    vm.register("target", shape=(im, im, 3), var_type="output",
+                requires_grad=False, default=target)
+    vm.register("weight", shape=(im, im, 3), var_type="output",
+                requires_grad=False, default=weight)
+    if loss_mask is not None:
+        vm.register("loss_mask", shape=(im, im, 3), var_type="output",
+                    requires_grad=False, default=loss_mask)
+    return vm
+
+
+def cars_loss_mask(im=512, model="cars"):
+    """LSUN-Cars border mask: content fills the middle 3/4 of the rows of
+    the padded square. None for the other models (FFHQ fills the frame)."""
+    if model != "cars":
+        return None
+    m = np.zeros((im, im, 3), np.float32)
+    pad = im // 8
+    m[pad:im - pad] = 1.0
+    return m
+
+
+def make_loss(args, net="alex"):
+    """ProjectionLoss: masked L1 + 10 x LPIPS (``net``: alex, vgg16 or
+    squeeze)."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        return LF.ProjectionLoss(lpips_net=net, beta=10.0, device=args.device)
+
+
+def finish(args, opt, variables, outs, losses, default_dir):
+    """Write ``result.npz`` to the save directory: every variable as
+    ``variables/<type>/<name>``, the last logged loss (``loss``, at step
+    ``loss_step``), each generation's min tell loss (``tell_min``, when the
+    driver recorded them) and the tracked variables (``tracked/<name>``).
+    Returns the directory."""
+    del outs                          # collages go to image files: not ported
+    save_dir = args.save_dir or default_dir
+    os.makedirs(save_dir, exist_ok=True)
+    payload = {f"variables/{vt}/{name}": to_numpy(t)
+               for vt, d in variables.items() for name, t in d.items()}
+    step, final = losses[-1]
+    payload["loss"] = np.asarray(final["loss"])
+    payload["loss_step"] = np.int64(step)
+    if opt.losses and not isinstance(opt.losses[0], list):
+        payload["tell_min"] = np.asarray(opt.losses, np.float64)
+    for name, arr in (getattr(opt, "tracked", None) or {}).items():
+        payload[f"tracked/{name}"] = np.asarray(arr)
+    path = osp.join(save_dir, "result.npz")
+    np.savez(path, **payload)
+    print(f"done: best loss {payload['loss'].min():.4f} -> {path}")
+    return save_dir

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from pix2latent_tpu_torch.ops.attention import sagan_attention
 from pix2latent_tpu_torch.utils.device import resolve_device
@@ -214,11 +215,14 @@ class BigGANDeepGenerator(nn.Module):
     BN; blocks per BIGGAN_CONFIGS; 3-channel tanh output (NHWC, f32)."""
 
     def __init__(self, model_version="biggan-deep-256",
-                 channel_width=CHANNEL_WIDTH, dtype=torch.float32):
+                 channel_width=CHANNEL_WIDTH, dtype=torch.float32,
+                 remat=False, remat_from_res=0):
         super().__init__()
         cfg = BIGGAN_CONFIGS[model_version]
         ch = channel_width
         self.dtype = dtype
+        self.remat = bool(remat)
+        self.remat_from_res = int(remat_from_res)
         self.ch = ch
         self.layers = cfg["layers"]
         self.attn_pos = cfg["attention_position"]
@@ -238,10 +242,21 @@ class BigGANDeepGenerator(nn.Module):
                      self.gen_z.bias.to(self.dtype))
         # HF views gen_z's output as [N, 4, 4, 16ch] (H, W, C order)
         h = h.view(-1, 4, 4, 16 * self.ch).permute(0, 3, 1, 2)
-        for i in range(len(self.layers)):
+        res = 4
+        for i, (up, _, _) in enumerate(self.layers):
             if i == self.attn_pos:
                 h = getattr(self, f"attn_{i}")(h)
-            h = getattr(self, f"block_{i}")(h, truncation, cond)
+            if up:
+                res *= 2
+            block = getattr(self, f"block_{i}")
+            if torch.is_grad_enabled() and (self.remat or (
+                    self.remat_from_res and res >= self.remat_from_res)):
+                # the JAX package's nn.remat: the backward recomputes the
+                # block's activations; the block draws no random numbers
+                h = checkpoint(block, h, truncation, cond, use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                h = block(h, truncation, cond)
         h = F.relu(self.bn_out(h, truncation))
         h = self.conv_to_rgb(h)
         return torch.tanh(h).float().permute(0, 2, 3, 1)
@@ -282,13 +297,17 @@ class BigGAN(nn.Module):
     ``params``: the JAX package's parameter tree ``{"generator": ...,
     "embeddings": ...}``, nested or flat (``/``-joined paths);
     ``pretrained_path``: a ``.npz`` written by ``save_params_npz``. With
-    neither, a deterministic random init from ``seed``.
+    neither, a deterministic random init from ``seed``. ``remat`` recomputes
+    every residual block's activations in the backward instead of keeping
+    them, ``remat_from_res`` the blocks whose output resolution is at least
+    that (``torch.utils.checkpoint``, the JAX package's ``nn.remat``).
     """
 
     def __init__(self, model_version: str = "biggan-deep-256", params=None,
                  pretrained_path: Optional[str] = None,
                  dtype=torch.float32, seed: int = 0,
-                 channel_width: int = CHANNEL_WIDTH, device="cuda"):
+                 channel_width: int = CHANNEL_WIDTH, remat: bool = False,
+                 remat_from_res: int = 0, device="cuda"):
         super().__init__()
         if model_version not in BIGGAN_CONFIGS:
             raise ValueError(f"unknown BigGAN version {model_version!r}")
@@ -297,7 +316,8 @@ class BigGAN(nn.Module):
         device = resolve_device(device)
         self.model_version = model_version
         self.generator = BigGANDeepGenerator(model_version, channel_width,
-                                             dtype)
+                                             dtype, remat=remat,
+                                             remat_from_res=remat_from_res)
         self.embeddings = ClassEmbeddings()
         if params is None and pretrained_path:
             params = load_params_npz(pretrained_path)

@@ -26,7 +26,9 @@ every layer casts its weights and input and computes in bf16, as the Flax
 modules' ``dtype`` does, and the same values stay float32 where the JAX
 package's type promotion keeps them so: the demodulation factors, the noise
 injection's output (its gain is a float32 parameter) and everything after it
-up to the next conv, and the RGB skip sum. Parameter names follow the Flax
+up to the next conv, and the RGB skip sum. ``remat_from_res`` recomputes
+the synthesis blocks at and above that resolution in the backward (see
+``StyleGAN2Generator._block_runner``). Parameter names follow the Flax
 tree, so ``utils/params_io.py`` (layout ``STYLEGAN2``) carries weights
 across, and the random init draws the same numbers as the JAX package's for
 the same seed.
@@ -42,6 +44,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from pix2latent_tpu_torch.ops.mod_backward import modulate
 from pix2latent_tpu_torch.ops.upfirdn2d import Blur, Upsample, fused_leaky_relu
@@ -188,9 +191,11 @@ class StyleGAN2Generator(nn.Module):
     with explicit noise. Returns the NCHW float32 RGB sum, unclamped."""
 
     def __init__(self, im_res=512, n_mlp=8, channel_multiplier=2,
-                 dtype=torch.float32, fused_mod_bwd=False, fir_kernel=False):
+                 dtype=torch.float32, fused_mod_bwd=False, fir_kernel=False,
+                 remat_from_res=0):
         super().__init__()
         self.im_res = im_res
+        self.remat_from_res = int(remat_from_res)
         self.log_size = int(math.log2(im_res))
         self.num_layers = (self.log_size - 2) * 2 + 1
         self.n_mlp = n_mlp
@@ -236,10 +241,25 @@ class StyleGAN2Generator(nn.Module):
         x = self.conv1(x, w, noises[0])
         skip = self.to_rgb1(x, w)
         for li in range(self.log_size - 2):
-            x = getattr(self, f"convs_{2 * li}")(x, w, noises[2 * li + 1])
-            x = getattr(self, f"convs_{2 * li + 1}")(x, w, noises[2 * li + 2])
-            skip = getattr(self, f"to_rgbs_{li}")(x, w, skip)
+            run = self._block_runner(2 ** (li + 3))
+            x = run(getattr(self, f"convs_{2 * li}"), x, w, noises[2 * li + 1])
+            x = run(getattr(self, f"convs_{2 * li + 1}"), x, w,
+                    noises[2 * li + 2])
+            skip = run(getattr(self, f"to_rgbs_{li}"), x, w, skip)
         return skip
+
+    def _block_runner(self, res):
+        """How the blocks of resolution ``res`` run: under
+        ``torch.utils.checkpoint`` (the JAX package's ``nn.remat``) when
+        ``remat_from_res`` is set, ``res`` is at or above it and gradients
+        are on, so the backward recomputes their activations instead of
+        keeping them; else directly. The blocks draw no random numbers, so
+        the RNG state is not stashed for the recompute."""
+        if not (self.remat_from_res and res >= self.remat_from_res
+                and torch.is_grad_enabled()):
+            return lambda block, *args: block(*args)
+        return lambda block, *args: checkpoint(
+            block, *args, use_reentrant=False, preserve_rng_state=False)
 
 
 def _equalized(path: str, arr: np.ndarray) -> np.ndarray:
@@ -306,7 +326,7 @@ class StyleGAN2(nn.Module):
                  pretrained_path: Optional[str] = None, seed: int = 0,
                  channel_multiplier: int = 2, dtype=torch.float32,
                  fused_mod_bwd: bool = False, fir_kernel: bool = False,
-                 init: str = "jax", device="cuda"):
+                 remat_from_res: int = 0, init: str = "jax", device="cuda"):
         super().__init__()
         if model not in self.MODELS:
             raise ValueError(f"unknown StyleGAN2 model {model!r}")
@@ -319,7 +339,8 @@ class StyleGAN2(nn.Module):
         self.search = search
         self.generator = StyleGAN2Generator(
             self.im_res, channel_multiplier=channel_multiplier, dtype=dtype,
-            fused_mod_bwd=fused_mod_bwd, fir_kernel=fir_kernel)
+            fused_mod_bwd=fused_mod_bwd, fir_kernel=fir_kernel,
+            remat_from_res=remat_from_res)
 
         if params is None and pretrained_path:
             if str(pretrained_path).endswith(".npz"):

@@ -17,6 +17,7 @@ import math
 
 import numpy as np
 import torch
+import torch.nn as nn
 import torch.nn.functional as F
 
 from pix2latent_tpu_torch.ops.fir_blur import fir_blur
@@ -51,7 +52,7 @@ def upfirdn2d(x, kernel, up=1, down=1, pad=(0, 0)):
     return F.conv2d(x, weight.repeat(c, 1, 1, 1), stride=down, groups=c)
 
 
-class Blur:
+class Blur(nn.Module):
     """FIR blur with optional upsample gain (rosinality ``Blur``).
 
     ``use_kernel=True`` sends a blur with 1-D taps through the separable
@@ -59,14 +60,17 @@ class Blur:
     the hand-written kernel, on CPU tensors it runs its plain version. The
     JAX package's ``use_pallas`` also required a TPU and planes of at least
     128x128; here there is no such gate, so the launch count of a run is
-    exact."""
+    exact. The 2-D kernel is a buffer, so it moves with the model (a host
+    kernel copied to the card at each call would wait for the device), and
+    stays out of the state_dict."""
 
     def __init__(self, kernel=(1, 3, 3, 1), pad=(0, 0), upsample_factor=1,
                  use_kernel=False):
+        super().__init__()
         k = make_kernel(kernel)
         if upsample_factor > 1:
             k = k * (upsample_factor ** 2)
-        self.kernel = k
+        self.register_buffer("kernel", k, persistent=False)
         self.pad = (int(pad[0]), int(pad[1]))
         self._taps = None
         k_np = np.asarray(kernel, np.float64)
@@ -74,35 +78,40 @@ class Blur:
             gain = float(upsample_factor ** 2)
             self._taps = (k_np / k_np.sum()) * np.sqrt(gain)
 
-    def __call__(self, x):
+    def forward(self, x):
         if self._taps is not None:
             return fir_blur(x.contiguous(), self._taps, self.pad)
         return upfirdn2d(x, self.kernel, pad=self.pad)
 
 
-class Upsample:
-    """2x FIR upsample (rosinality ``Upsample``)."""
+class Upsample(nn.Module):
+    """2x FIR upsample (rosinality ``Upsample``); the kernel is a buffer,
+    as :class:`Blur`'s."""
 
     def __init__(self, kernel=(1, 3, 3, 1), factor=2):
+        super().__init__()
         self.factor = factor
-        self.kernel = make_kernel(kernel, gain=factor ** 2)
+        self.register_buffer("kernel", make_kernel(kernel, gain=factor ** 2),
+                             persistent=False)
         p = self.kernel.shape[0] - factor
         self.pad = ((p + 1) // 2 + factor - 1, p // 2)
 
-    def __call__(self, x):
+    def forward(self, x):
         return upfirdn2d(x, self.kernel, up=self.factor, pad=self.pad)
 
 
-class Downsample:
-    """FIR downsample (rosinality ``Downsample``)."""
+class Downsample(nn.Module):
+    """FIR downsample (rosinality ``Downsample``); the kernel is a buffer,
+    as :class:`Blur`'s."""
 
     def __init__(self, kernel=(1, 3, 3, 1), factor=2):
+        super().__init__()
         self.factor = factor
-        self.kernel = make_kernel(kernel)
+        self.register_buffer("kernel", make_kernel(kernel), persistent=False)
         p = self.kernel.shape[0] - factor
         self.pad = ((p + 1) // 2, p // 2)
 
-    def __call__(self, x):
+    def forward(self, x):
         return upfirdn2d(x, self.kernel, down=self.factor, pad=self.pad)
 
 

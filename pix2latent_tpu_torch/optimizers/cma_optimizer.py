@@ -7,6 +7,9 @@ from __future__ import annotations
 
 from pix2latent_tpu_torch.optimizers.base import _BaseOptimizer
 from pix2latent_tpu_torch.optimizers.cma_base import _BaseCMAOptimizer
+from pix2latent_tpu_torch.utils.checkpoint import (LoopCheckpointer,
+                                                   final_checkpoint)
+from pix2latent_tpu_torch.utils.misc import Timer, progress_print, to_numpy
 
 
 class CMAOptimizer(_BaseOptimizer, _BaseCMAOptimizer):
@@ -15,28 +18,75 @@ class CMAOptimizer(_BaseOptimizer, _BaseCMAOptimizer):
         _BaseOptimizer.__init__(self, *args, **kwargs)
         _BaseCMAOptimizer.__init__(self)
 
-    def optimize(self, meta_steps, grad_steps=0, num_samples=None,
-                 popsize=None, active=False):
+    def optimize_fused(self, meta_steps, grad_steps=0, popsize=None,
+                       active=False, progress_every=25,
+                       checkpoint_path=None, checkpoint_every=1):
+        """Eval-only CMA generations, each one function that queues the
+        ask, the population's evaluation, the tell and the CMA update
+        without reading anything back (``_build_fused_generation``), then
+        ``grad_steps`` Adam steps on a final ask.
+
+        Each generation evaluates the population once and tells that loss;
+        :meth:`optimize`, like the JAX package's host loop, evaluates twice
+        with different hook noise (a logged evaluation and a fresh tell).
+        Per-generation min tell losses land in ``self.losses`` one
+        generation behind; ``checkpoint_path`` makes the meta loop and the
+        finetune resumable. Returns ``(variables, outs, losses)``."""
+        self.setup_cma(self.var_manager, popsize=popsize, active=active)
+        self.losses, self.outs, self.gen_seconds = [], [], []
+        ran = self._fused_meta_loop(self._get_fused_gen(0), meta_steps,
+                                    "cma fused", checkpoint_path,
+                                    checkpoint_every, progress_every)
+        variables = self._fused_final(
+            grad_steps, meta_steps, final_checkpoint(checkpoint_path, ran),
+            checkpoint_every)
+        return self._final_results(variables, meta_steps + grad_steps)
+
+    def optimize(self, meta_steps, grad_steps=0, pbar=None, num_samples=None,
+                 popsize=None, checkpoint_path=None, checkpoint_every=1,
+                 active=False):
         """The JAX package's host loop: each generation asks CMA, evaluates
         the population (hooks applied), and tells CMA a fresh tell loss, as
         the reference does; the best tell loss of every generation lands in
-        ``self.losses``. ``num_samples`` must be None: CMA's population size
-        (``popsize``, default ``4 + floor(3 ln n)``) fixes it.
-        Returns ``(variables, [out], [[total_steps, {"loss": ...}]])``."""
+        ``self.losses`` (without logging). ``num_samples`` must be None:
+        CMA's population size (``popsize``, default ``4 + floor(3 ln n)``)
+        fixes it. ``checkpoint_path`` makes the generation loop and the
+        finetune resumable. Returns ``(variables, outs, losses)``."""
         if num_samples is not None:
             raise ValueError("the CMA optimizer has a fixed sample size; "
                              "set popsize instead")
         self.setup_cma(self.var_manager, popsize=popsize, active=active)
         self.losses, self.outs = [], []
-        for i in range(meta_steps):
+        total_steps = meta_steps + grad_steps
+        timer = Timer()
+        ckpt = LoopCheckpointer(checkpoint_path, self, "cma_state",
+                                every=checkpoint_every)
+        start = ckpt.resume()
+        for i in range(start, meta_steps):
             variables = self.cma_init(self.var_manager)
             self.out, loss = self.core.eval(variables, self.generator, i)
-            self.loss = loss.cpu().numpy()
+            self.loss = to_numpy(loss)
+            if self.log and (i + 1) % self.log_iter == 0:
+                self.log_result(variables, i + 1)
             tell = self.cma_update(variables, step=i)
-            self.losses.append(float(tell.min()))
+            if not self.log:
+                self.losses.append(float(tell.min()))
+            ckpt.save(i + 1)
+            if pbar is not None:
+                pbar.progress((i + 1) / total_steps)
+            elif (i + 1) % self.show_iter == 0:
+                progress_print("optimize", i + 1, total_steps, "c",
+                               timer.avg(self.show_iter))
+                timer.reset()
 
+        # Adam finetune of a final ask
         variables = self.cma_init(self.var_manager)
+        variables = self.core.apply_transforms(variables)
         variables, optimizer = self.core.init_opt_state(variables)
-        variables, _, _, _ = self._run_inner(variables, optimizer, grad_steps,
-                                             start_step=meta_steps)
-        return self._final_results(variables, meta_steps + grad_steps)
+        variables, _, _, _ = self._run_inner(
+            variables, optimizer, grad_steps, start_step=meta_steps,
+            pbar=pbar, total_steps=total_steps, timer=timer,
+            checkpoint_path=final_checkpoint(checkpoint_path,
+                                             start < meta_steps),
+            checkpoint_every=checkpoint_every)
+        return self._final_results(variables, total_steps)

@@ -173,8 +173,10 @@ def tell(params: CMAParams, state: CMAState, x: torch.Tensor,
 
     gen1 = state.gen.to(dt) + 1.0
     ps_norm = torch.linalg.norm(p_sigma)
+    # a fill, not torch.tensor(..., device=...): a host-to-device copy
+    # waits for the device
     denom = torch.sqrt(1.0 - torch.pow(
-        torch.tensor(1.0 - cs, dtype=dt, device=gen1.device), 2.0 * gen1))
+        torch.full((), 1.0 - cs, dtype=dt, device=gen1.device), 2.0 * gen1))
     h_sigma = (ps_norm / denom / chi_n <
                1.4 + 2.0 / (params.n + 1.0)).to(dt)
 

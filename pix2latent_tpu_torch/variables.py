@@ -73,6 +73,7 @@ class VariableOptimizer:
 
     def __init__(self, optimizers):
         self.optimizers = optimizers
+        self._template = None
 
     def zero_grad(self):
         for opt in self.optimizers:
@@ -81,6 +82,52 @@ class VariableOptimizer:
     def step(self):
         for opt in self.optimizers:
             opt.step()
+
+    def state_template(self):
+        """The per-parameter state every optimizer holds once it has
+        stepped, zeroed: ``[{param index: {name: tensor}}]`` in optimizer
+        order (Adam's ``step``, ``exp_avg``, ``exp_avg_sq``). It comes from a
+        throwaway copy of each optimizer stepped once with zero gradients
+        over zero tensors of its parameters' shapes, so it has whatever
+        entries the installed PyTorch gives the optimizer. Loaded, the zeroed
+        state is a fresh optimizer's for Adam, AdamW and SGD."""
+        if self._template is None:
+            self._template = []
+            for opt in self.optimizers:
+                groups = [{**{k: v for k, v in g.items() if k != "params"},
+                           "params": [torch.zeros_like(p).requires_grad_(True)
+                                      for p in g["params"]]}
+                          for g in opt.param_groups]
+                dummy = type(opt)(groups)
+                for g in dummy.param_groups:
+                    for p in g["params"]:
+                        p.grad = torch.zeros_like(p)
+                dummy.step()
+                self._template.append({
+                    i: {k: (torch.zeros_like(v) if isinstance(v, torch.Tensor)
+                            else v) for k, v in st.items()}
+                    for i, st in dummy.state_dict()["state"].items()})
+        return self._template
+
+    def state(self):
+        """The optimizers' per-parameter state in the structure of
+        :meth:`state_template`: the live tensors (not copies) where a
+        parameter has stepped, the zeroed template where it has not."""
+        out = []
+        for opt, template in zip(self.optimizers, self.state_template()):
+            live = opt.state_dict()["state"]
+            out.append({i: live.get(i, st) for i, st in template.items()})
+        return out
+
+    def load_state(self, states):
+        """Load a :meth:`state` result (e.g. from a checkpoint); the
+        optimizers get copies of its tensors."""
+        for opt, st in zip(self.optimizers, states):
+            sd = opt.state_dict()
+            sd["state"] = {i: {k: (v.clone() if isinstance(v, torch.Tensor)
+                                   else v) for k, v in entry.items()}
+                           for i, entry in st.items()}
+            opt.load_state_dict(sd)
 
 
 class VariableManager:

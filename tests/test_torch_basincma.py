@@ -138,7 +138,10 @@ def test_optimize_runs_the_search_on_the_toy_model():
     assert pop == 4 + int(math.floor(3 * math.log(16)))
     assert len(opt.losses) == 3 and all(map(math.isfinite, opt.losses))
     assert len(opt.gen_seconds) == 3
-    assert outs[0].shape == (pop, 16, 16, 3)
+    # the result is the collage of the population, as the JAX package's
+    assert outs[0].shape == (3 * 18 + 2, 4 * 18 + 2, 3)
+    np.testing.assert_array_equal(outs[0][2:18, 2:18],
+                                  opt.out[0].detach().numpy())
     assert final[0][0] == 3 * 5 + 7 and final[0][1]["loss"].shape == (pop,)
     assert variables["input"]["z"].abs().max() <= 2.0 + 0.05 * 7
     assert float(opt.cma_state.gen) == 3

@@ -2,9 +2,14 @@
 the SA-GAN attention (K1), the separable FIR blur (K2) and the fused
 modulation backward (K3), in float32 and bfloat16, at the largest shapes
 their paths give them and at ragged ones. K2 is also held at every level of
-the StyleGAN2-cars-512 up path, at plane sides around its 16-byte runs, at
-1 to 8 taps with asymmetric pads, on inputs that start one element past a
-16-byte boundary, and for bitwise repeatability. K1's bfloat16 route (the
+the StyleGAN2 up path (cars-512 and FFHQ-1024), at plane sides around its
+16-byte runs, at the row widths about FFHQ's 1024 (1024, 1025, 1026: in
+float32 the 1025-wide rows take the column-segment mode), at 1 to 8 taps
+with asymmetric pads, on inputs that start one element past a 16-byte
+boundary, and for bitwise repeatability. K3 is also held at the FFHQ-1024
+chunk's largest level, [2, 32, 1024, 1024]. Recompute in the backward
+(``torch.utils.checkpoint``) around blocks that launch K2 and K3, and around
+K1, relaunches their forwards and keeps the gradients. K1's bfloat16 route (the
 tensor-core kernels) is also held at every head width it takes, on peaked
 logits that pin the masking of padded keys, for bitwise repeatability, and
 for the precision of its dS products against a float64 computation.
@@ -199,9 +204,15 @@ TAPS = (0.25, 0.75, 0.75, 0.25)   # [1, 3, 3, 1] / 8 * sqrt(4), the up-path blur
 # version round one f32 sum once and the sums differ only in operation order
 FIR_TOL = {torch.float32: ((0.0, 1e-5), (0.0, 1e-4)),
            torch.bfloat16: ((2.0 ** -7, 1e-5), (2.0 ** -7, 1e-5))}
-# the seven up-path blurs of StyleGAN2-cars-512 at n = 2: [2, ch(r), r+1, r+1]
+# the up-path blurs of StyleGAN2 at n = 2: [2, ch(r), r+1, r+1], seven
+# levels for cars-512 and an eighth, r = 1024, for FFHQ-1024
 FIR_LEVELS = [((2, channels_for(r), r + 1, r + 1), (1, 1))
-              for r in (8, 16, 32, 64, 128, 256, 512)]
+              for r in (8, 16, 32, 64, 128, 256, 512, 1024)]
+# widths about the 1024-wide FFHQ rows: in float32 a 1025-wide row is 257
+# sixteen-byte runs, one more than a tile row holds, so the adjoint's
+# 1025-wide output takes the column-segment mode
+FIR_WIDE = [((2, 3, 9, w), (1, 1)) for w in (1024, 1025, 1026)] + [
+    ((2, 3, 9, w), (2, 1)) for w in (1024, 1025, 1026)]
 # plane sides against the 16-byte runs and the strips: each as the height
 # and as the width, with pad (2, 1) so that the output keeps the size
 FIR_SIDES = (1, 2, 7, 8, 9, 15, 16, 17, 63, 64, 65, 511, 512, 513)
@@ -257,6 +268,12 @@ def _fir_matches_plain(shape, pad, dtype, device, k=4, offset=0):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape,pad", FIR_CASES)
 def test_fir_blur_kernel_matches_plain(cuda, shape, pad, dtype):
+    _fir_matches_plain(shape, pad, dtype, cuda)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,pad", FIR_WIDE)
+def test_fir_blur_ffhq_row_widths_match_plain(cuda, shape, pad, dtype):
     _fir_matches_plain(shape, pad, dtype, cuda)
 
 
@@ -322,7 +339,8 @@ MOD_TOL = {torch.float32: ((1e-6, 0.0), (5e-5, 1e-5)),
 MOD_SHAPES = [
     (3, 5, 7, 9),          # ragged plane: one element a thread
     (22, 512, 4, 4),       # the smallest path level
-    (22, 64, 512, 512),    # the largest path level
+    (22, 64, 512, 512),    # the largest cars-512 level
+    (2, 32, 1024, 1024),   # the largest FFHQ-1024 level, one 2-sample chunk
 ]
 
 
@@ -376,3 +394,80 @@ def test_mod_backward_rejects_what_it_does_not_take(cuda):
         MB.fused_mod_backward(g, g, s[:, :2].contiguous())
     with pytest.raises(ValueError):
         MB.fused_mod_backward(g, g.cpu(), s)
+
+
+# --------------------------------------------------------------------- #
+# remat with the kernels inside the recomputed blocks                    #
+# --------------------------------------------------------------------- #
+
+def _sg2_grads(dtype, remat_from_res, device):
+    """z-gradient and loss of a StyleGAN2 at im_res 64 (channel multiplier
+    1, equalized weights from a seed), both kernel flags on."""
+    import warnings
+
+    from pix2latent_tpu_torch.models import stylegan2 as S
+
+    saved = S.StyleGAN2.MODELS
+    S.StyleGAN2.MODELS = dict(saved, t64=64)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            model = S.StyleGAN2("t64", channel_multiplier=1, dtype=dtype,
+                                fused_mod_bwd=True, fir_kernel=True,
+                                remat_from_res=remat_from_res,
+                                init="equalized", seed=3, device=device)
+    finally:
+        S.StyleGAN2.MODELS = saved
+    rng = np.random.RandomState(4)
+    z = torch.tensor(rng.randn(2, 512).astype(np.float32), device=device,
+                     requires_grad=True)
+    cot = torch.tensor(rng.randn(2, 64, 64, 3).astype(np.float32),
+                       device=device)
+    FB.reset_launch_counts()
+    MB.reset_launch_counts()
+    out = model(z=z)
+    (out * cot).sum().backward()
+    torch.cuda.synchronize()
+    return out.detach(), z.grad, FB.launch_counts(), MB.launch_counts()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_remat_runs_the_kernels_and_keeps_the_gradients(cuda, dtype):
+    # cuDNN's default f32 algorithms are not repeatable: two runs of the
+    # same model, without remat, give z-gradients up to 1e-4 apart
+    # (relative). Deterministic algorithms isolate what remat changes.
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=True, allow_tf32=False):
+        out, grad, fb, mb = _sg2_grads(dtype, 0, cuda)
+        out_r, grad_r, fb_r, mb_r = _sg2_grads(dtype, 32, cuda)
+    # four up-path blurs (r = 8 .. 64) and 14 modulated convs; remat from
+    # 32 recomputes the up-convs of levels 32 and 64 in the backward
+    assert fb == {"fwd": 4, "bwd": 4} and mb == {"bwd": 14}
+    assert fb_r == {"fwd": 6, "bwd": 4} and mb_r == {"bwd": 14}
+    # images and gradients held by their relative error |a - b| / |b|:
+    # f32 1e-5, bf16 2e-2
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    for name, got, want in (("image", out_r, out), ("z-grad", grad_r, grad)):
+        rel = float((got - want).norm() / want.norm())
+        assert rel <= tol, (name, rel)
+    assert float(grad.abs().max()) > 0
+
+
+def test_remat_around_the_attention_kernel(cuda):
+    from torch.utils.checkpoint import checkpoint
+
+    theta, phi, g, cot = _inputs((2, 256, 64, 8, 16), torch.bfloat16, cuda)
+    grads = []
+    for remat in (False, True):
+        ins = [t.clone().requires_grad_(True) for t in (theta, phi, g)]
+        A.reset_launch_counts()
+        if remat:
+            out = checkpoint(A.sagan_attention, *ins, use_reentrant=False)
+        else:
+            out = A.sagan_attention(*ins)
+        (out.float() * cot.float()).sum().backward()
+        torch.cuda.synchronize()
+        assert A.launch_counts() == {"fwd": 1 + remat, "bwd": 1}
+        grads.append([t.grad for t in ins])
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)

@@ -155,13 +155,15 @@ def test_gradient_optimizer_trajectory_matches_jax(toys):
     jvm = JaxVariableManager(seed=0)
     _register_toy(jvm, jax_hooks.Clamp(1.5), jnp.asarray(target),
                   jnp.asarray(z0))
-    jv, _, jl = JaxGradient(jm, jvm, JLF.l1_loss).optimize(5, 8)
+    jv, jouts, jl = JaxGradient(jm, jvm, JLF.l1_loss).optimize(5, 8)
 
     vm = VariableManager(seed=0, device="cpu")
     _register_toy(vm, hooks.Clamp(1.5), target, torch.tensor(z0))
     tv, outs, tl = GradientOptimizer(tm, vm, LF.l1_loss,
                                      device="cpu").optimize(5, 8)
-    assert tl[0][0] == jl[0][0] == 8 and outs[0].shape == (5, RES, RES, 3)
+    # both return the collage of the population (to_grid)
+    assert tl[0][0] == jl[0][0] == 8 and outs[0].shape == jouts[0].shape
+    np.testing.assert_allclose(outs[0], np.asarray(jouts[0]), **TRAJ)
     np.testing.assert_allclose(tv["input"]["z"].detach().numpy(),
                                np.asarray(jv["input"]["z"]), **TRAJ)
     np.testing.assert_allclose(tl[0][1]["loss"], np.asarray(jl[0][1]["loss"]),
