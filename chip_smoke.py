@@ -4,6 +4,7 @@
     python3 chip_smoke.py [--generations G] [--final-steps F]
                           [--sg2-generations G] [--sg2-final-steps F]
                           [--ffhq-generations G] [--ffhq-final-steps F]
+                          [--biggan-generations G] [--biggan-final-steps F]
 
 Phases, one JSON line each; any failure raises and exits non-zero:
 
@@ -14,10 +15,11 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    on the card, in float32 and bfloat16, at the largest shape its path gives
    it and at a small ragged shape:
    - the SA-GAN attention (K1), forward and backward, at the
-     BigGAN-deep-256 shape (and, in bfloat16, the BigGAN-deep-128 one), with
-     the tolerances of ``tests/test_attention.py``; in bfloat16 (the
-     tensor-core route) two forward + backward calls must also give bitwise
-     equal results;
+     BigGAN-deep-256 and BigGAN-deep-128 shapes, with the tolerances of
+     ``tests/test_attention.py``, in both routes (bfloat16: ``design``
+     ``tensor-core``; float32: ``3xtf32``, each f32 product as three TF32
+     products on the tensor cores); two forward + backward calls must also
+     give bitwise equal results;
    - the separable FIR blur (K2), forward and backward, at [22, 64, 513, 513]
      with pad (1, 1), with the float32 tolerances of
      ``tests/test_pallas_fir.py`` (atol 1e-5 output, 1e-4 gradient) and, in
@@ -32,28 +34,49 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      the depthwise conv, the bound and the bytes the kernel's plan moves
      (``*_design_bytes``, from ``fir_blur_work``), with sums over the levels;
    - the fused modulation backward (K3) at [22, 64, 512, 512], with the
-     tolerances of ``tests/test_mod_backward.py``;
+     tolerances of ``tests/test_mod_backward.py``, g_x bitwise equal to the
+     plain version and two calls bitwise equal (``deterministic``); each
+     timed K3 case prints the kernel's plan (``splits`` blocks a plane in
+     one cluster, ``blocks``) and ``composite_ms``, the time of the unfused
+     backward that ``modulate(fused=False)`` leaves to autograd (``g * s``
+     and the f32 ``(g * x).sum((2, 3))``): no single PyTorch call computes
+     both outputs, so ``library_ms`` stays null;
    - K2 and K3 at the largest shapes of ``ffhq_path`` (one 2-sample chunk):
      K2 forward and adjoint at [2, 32, 1025, 1025] with pad (1, 1) (in
      float32 the adjoint's 1025-wide rows are 257 sixteen-byte runs, which
      the kernel cuts into column segments), K3 at [2, 32, 1024, 1024], both
      types, timed as the cars shapes are; ``ffhq_fir_levels`` is
      ``fir_levels`` for the eight blurs of ``ffhq_path`` ([2, ch(r), r+1,
-     r+1], r = 8 .. 1024).
-   Times (CUDA events, median of 25 runs) of the kernel, the plain version
+     r+1], r = 8 .. 1024); ``ffhq_mod_levels`` holds K3 against its plain
+     version at each of the 26 modulated-conv inputs of one FFHQ chunk
+     (``models/stylegan2.py:modulated_conv_inputs``) and times each launch
+     cold, beside its bound,
+     with sums over the chunk.
+   Times (CUDA events, median of 25 runs; a device-side wait before each
+   timed launch keeps the host's time to launch it outside the events) of
+   the kernel, the plain version
    and, where one PyTorch call computes the same function, that call
    (``scaled_dot_product_attention`` with ``scale=1.0`` for K1, one
    depthwise ``F.conv2d`` with the 4x4 outer-product kernel for K2; none
    for K3), timed here only and never called by the port, beside the least
-   time the card could take. K1's case also gives the FLOPs its kernels do,
-   tile padding included, as the kernel source counts them
-   (``fwd_design_ops``, ``bwd_design_ops``).
+   time the card could take: bytes over 3.35 TB/s against operations over
+   the peak rate of the units that do them (K1 runs on the tensor cores:
+   989 TFLOP/s for bfloat16, the 495 TFLOP/s TF32 rate for float32, as if
+   each f32 product cost one TF32 product; K2 and K3 use none: 67 TFLOP/s
+   for float32). K1's case also gives the FLOPs its kernels do, tile
+   padding included, as the kernel source counts them (``fwd_design_ops``,
+   ``bwd_design_ops``; in float32 three tensor-core products each), and
+   the max error of ``scaled_dot_product_attention`` against the plain
+   version beside the kernel's (``library_*_max_abs_err``), and the
+   backward's device time by kernel (``bwd_kernels_ms``, from
+   ``torch.profiler``; in float32 with the bytes of the dS scratch that
+   its dkv kernel writes and its dq kernel reads, ``ds_scratch_bytes``).
 4. ``main_path``: BasinCMA inversion of the ``bench.py`` ramp target through
    BigGAN-deep-256 at full width (channel width 128) in bfloat16, under
    ProjectionLoss (masked L1 + 10 x LPIPS-alex), population 18, 30 inner
-   Adam steps per generation, random weights from a seed; by default 10 of
-   the flagship's 30 generations and 100 of its 300 final steps (printed as
-   ``shortened``; ``sg2_path`` is cut the same way). The launch
+   Adam steps per generation, random weights from a seed; by default the
+   flagship's full 30 generations and 300 final steps (a shorter schedule
+   from the flags is printed as ``shortened``; ``sg2_path`` likewise). The launch
    counters are set to 0 just before and read just after; they must equal
    one forward per inner step and per tell, one backward per inner step.
 5. ``whole_step``: one float32 forward and backward of generator + loss at
@@ -86,11 +109,24 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    run, running one evaluation and no step.
 9. ``ffhq_whole_step``: as ``whole_step``, for the FFHQ problem with remat
    on.
+10. ``biggan_f32_path``: the problem of the BigGAN BasinCMA entry point
+   (``pix2latent_tpu_torch/examples/invert_biggan_basincma.py``), built by
+   its own functions: BigGAN-deep-256 at full width in float32 (so K1 runs
+   its float32 route), random weights from seed 0, the synthetic target,
+   ``register_biggan_vars``, ProjectionLoss, population 18, 30 inner Adam
+   steps, driven by ``BasinCMAOptimizer.optimize`` for 3 of the example's
+   30 generations and 30 of its 300 final steps (printed as
+   ``shortened``). K1's counters are set to 0 just before and read just
+   after: one forward per inner step and per tell, one backward per inner
+   step. Prints images/s, seconds per generation, peak memory, the tell
+   losses and K1's share of a step (from the ``kernels`` times).
 
 Then a ``done`` line with the script's seconds, the ``{"kernels": [...]}``
 line (each K2 and K3 entry twice: at the cars path's shapes with
 ``sg2_path``'s launches, and, ``_ffhq``, at the FFHQ path's with
-``ffhq_path``'s), the card's ``nvidia-smi`` line and the result line. It exits non-zero, printing no result, without a CUDA device or
+``ffhq_path``'s; K1 twice: bfloat16 with ``main_path``'s launches, and,
+``_f32``, float32 with ``biggan_f32_path``'s), the card's ``nvidia-smi``
+line and the result line. It exits non-zero, printing no result, without a CUDA device or
 without the package beside it.
 """
 
@@ -104,9 +140,13 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores and f32
-# outside them (the kernel uses no TF32), and HBM3 bandwidth
+# H100 SXM peaks (NVIDIA data sheet, dense) and HBM3 bandwidth: the rate of
+# the units a kernel's operations run on. K1 runs on the tensor cores, bf16
+# at 989 TFLOP/s and f32 as 3xTF32, bound as if each f32 product cost one
+# product at the 495 TFLOP/s TF32 rate; K2 and K3 use no tensor cores (f32
+# at 67 TFLOP/s)
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+TENSOR_CORE_FLOPS = {"bfloat16": 989e12, "float32": 495e12}
 PEAK_BYTES = 3.35e12
 
 FLAGSHIP = (18, 4096, 1024, 64, 256)   # n, q, k, d, dv at 256 px, pop 18
@@ -151,6 +191,10 @@ def smi_line():
 
 
 def cuda_ms(fn, reps=25, warmup=3):
+    """Median ms of ``fn`` over ``reps`` launches, back to back. Before each,
+    a device-side wait of about 0.1 ms covers the host's time to launch it,
+    which stays outside the events (a 0.2 ms kernel behind a Python wrapper
+    was otherwise timed with the wrapper)."""
     import torch
     for _ in range(warmup):
         fn()
@@ -159,12 +203,41 @@ def cuda_ms(fn, reps=25, warmup=3):
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
         start.record()
         fn()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def kernel_parts_ms(fn, reps=5):
+    """Device ms a call of ``fn`` spends in each CUDA kernel it launches,
+    by kernel name (the template's name), from ``torch.profiler`` over
+    ``reps`` calls after one untraced call."""
+    import re
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    parts = {}
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA and evt.self_device_time_total > 0:
+            found = re.search(r"([A-Za-z_]\w*)[<(]", evt.key.replace(
+                "(anonymous namespace)::", ""))
+            name = found.group(1) if found else evt.key[:80]
+            parts[name] = (parts.get(name, 0.0)
+                           + evt.self_device_time_total / 1e3 / reps)
+    return parts
 
 
 def max_err_within(a, b, tol, atol=None):
@@ -176,10 +249,11 @@ def max_err_within(a, b, tol, atol=None):
     return float(diff.max()), bool((diff <= atol + tol * b.abs()).all())
 
 
-def bound(bytes_moved, ops, dtype_name):
+def bound(bytes_moved, ops, dtype_name, peaks=PEAK_FLOPS):
     """(least ms, what bounds it): bytes over the memory rate against
-    operations over the peak rate for the type."""
-    t_bytes, t_ops = bytes_moved / PEAK_BYTES, ops / PEAK_FLOPS[dtype_name]
+    operations over the peak rate for the type (``peaks``: the units the
+    operations run on)."""
+    t_bytes, t_ops = bytes_moved / PEAK_BYTES, ops / peaks[dtype_name]
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
                                        else "operations")
 
@@ -227,7 +301,7 @@ def _attention_case(shape, dtype, timed):
     tol_o, tol_g = TOL[name]
     err_o, ok_o = max_err_within(out_k, out_r, tol_o)
     errs_g = [max_err_within(a, b, tol_g) for a, b in zip(grads_k, grads_r)]
-    design = "tensor-core" if dtype == torch.bfloat16 else "fma"
+    design = "tensor-core" if dtype == torch.bfloat16 else "3xtf32"
     case = {"kernel": "sagan_attention", "shape": list(shape), "dtype": name,
             "design": design, "tol_out": tol_o,
             "tol_grad": tol_g, "fwd_max_abs_err": err_o,
@@ -237,19 +311,23 @@ def _attention_case(shape, dtype, timed):
         return case
 
     o, m, l = A.kernel_forward(theta, phi, g)
-    if dtype == torch.bfloat16:
-        runs = []
-        for _ in range(2):
-            o2, m2, l2 = A.kernel_forward(theta, phi, g)
-            runs.append((o2, m2, l2,
-                         *A.kernel_backward(theta, phi, g, cot, m2, l2)))
-        case["deterministic"] = all(torch.equal(a, b)
-                                    for a, b in zip(*runs))
-        case["ok"] = case["ok"] and case["deterministic"]
-        del runs
+    runs = []
+    for _ in range(2):
+        o2, m2, l2 = A.kernel_forward(theta, phi, g)
+        runs.append((o2, m2, l2,
+                     *A.kernel_backward(theta, phi, g, cot, o2, m2, l2)))
+    case["deterministic"] = all(torch.equal(a, b) for a, b in zip(*runs))
+    case["ok"] = case["ok"] and case["deterministic"]
+    del runs
     case["fwd_ms"] = cuda_ms(lambda: A.kernel_forward(theta, phi, g))
     case["bwd_ms"] = cuda_ms(
-        lambda: A.kernel_backward(theta, phi, g, cot, m, l))
+        lambda: A.kernel_backward(theta, phi, g, cot, o, m, l))
+    # the backward's device time by kernel; in float32 its dkv kernel
+    # writes dS^T (an [n, k, q] f32 scratch) and its dq kernel reads it back
+    case["bwd_kernels_ms"] = kernel_parts_ms(
+        lambda: A.kernel_backward(theta, phi, g, cot, o, m, l))
+    if dtype == torch.float32:
+        case["ds_scratch_bytes"] = 4 * n * k * q
     case["plain_fwd_ms"] = cuda_ms(
         lambda: A.sagan_attention_reference(theta, phi, g))
     case["plain_bwd_ms"] = cuda_ms(
@@ -260,6 +338,11 @@ def _attention_case(shape, dtype, timed):
     out_l = F.scaled_dot_product_attention(*ins_l, scale=1.0)
     case["library_bwd_ms"] = cuda_ms(
         lambda: torch.autograd.grad(out_l, ins_l, cot, retain_graph=True))
+    grads_l = torch.autograd.grad(out_l, ins_l, cot, retain_graph=True)
+    case["library_fwd_max_abs_err"] = max_err_within(out_l, out_r, tol_o)[0]
+    case["library_bwd_max_abs_err"] = max(
+        max_err_within(a, b, tol_g)[0] for a, b in zip(grads_l, grads_r))
+    del grads_l
 
     # each input read once, each output written once; the f32 row
     # statistics (m, l) are an output of the forward and an input of the
@@ -273,11 +356,13 @@ def _attention_case(shape, dtype, timed):
     ops_fwd = 2 * n * q * k * (d + dv)
     ops_bwd = 2 * n * q * k * (3 * d + 2 * dv)
     # the FLOPs the kernels do, tile padding included, as their source
-    # counts them
+    # counts them (float32: three tensor-core products each)
     work = A.kernel_work(n, q, k, d, dv, dtype)
+    case["peak_flops"] = TENSOR_CORE_FLOPS[name]
     for key, b, f, f_done in (("fwd", bytes_fwd, ops_fwd, work[0]),
                               ("bwd", bytes_bwd, ops_bwd, work[1])):
-        case[f"{key}_bound_ms"], case[f"{key}_bound_by"] = bound(b, f, name)
+        case[f"{key}_bound_ms"], case[f"{key}_bound_by"] = bound(
+            b, f, name, TENSOR_CORE_FLOPS)
         case[f"{key}_bytes"], case[f"{key}_ops"] = b, f
         case[f"{key}_design_ops"] = f_done
     del o
@@ -469,33 +554,100 @@ def _mod_case(shape, dtype, timed):
     (rt_x, at_x), (rt_s, at_s) = MOD_TOL[name]
     err_x, ok_x = max_err_within(gx_k, gx_r, rt_x, at_x)
     err_s, ok_s = max_err_within(gs_k, gs_r, rt_s, at_s)
+    again = MB.fused_mod_backward(g, x, s)
+    torch.cuda.synchronize()
+    splits, threads, vec = MB.mod_backward_plan(
+        n * c, h * w, itemsize=g.element_size(),
+        aligned=all(t.data_ptr() % 16 == 0 for t in (g, x, gx_k)))
     case = {"kernel": "mod_backward", "shape": list(shape), "dtype": name,
             "tol_gx": [rt_x, at_x], "tol_gs": [rt_s, at_s],
             "gx_max_abs_err": err_x, "gs_max_abs_err": err_s,
             "max_abs_err": max(err_x, err_s),
-            "ok": (ok_x and ok_s and gx_k.dtype == dtype
-                   and gs_k.dtype == torch.float32)}
+            "gx_bitwise": torch.equal(gx_k, gx_r),
+            "deterministic": (torch.equal(again[0], gx_k)
+                              and torch.equal(again[1], gs_k)),
+            "splits": splits, "threads": threads, "vec": vec,
+            "blocks": n * c * splits}
+    case["ok"] = (ok_x and ok_s and case["gx_bitwise"]
+                  and case["deterministic"] and gx_k.dtype == dtype
+                  and gs_k.dtype == torch.float32)
     if not timed:
         return case
     case["ms"] = cuda_ms(lambda: MB.kernel_mod_backward(g, x, s))
     case["plain_ms"] = cuda_ms(lambda: MB.mod_backward_reference(g, x, s))
     case["library_ms"] = None     # no single PyTorch call computes both
+    case["composite_ms"] = cuda_ms(lambda: mod_composite(g, x, s))
+    case["bound_ms"], case["bound_by"] = bound(*mod_bytes_ops(shape, dtype),
+                                               name)
+    case["bytes"], case["ops"] = mod_bytes_ops(shape, dtype)
+    return case
+
+
+def mod_composite(g, x, s):
+    """The unfused backward of ``modulate(fused=False)``: autograd's
+    ``g * s`` and the f32 sum ``(g * x).sum((2, 3))``, two PyTorch calls."""
+    import torch
+    return g * s[:, :, None, None], (g * x).sum((2, 3), dtype=torch.float32)
+
+
+def mod_bytes_ops(shape, dtype):
+    """K3's minimal bytes (g and x read, g_x written, s read, g_s written)
+    and operations (g * s, g * x and the add)."""
+    import torch
+    n, c, h, w = shape
     size = 2 if dtype == torch.bfloat16 else 4
-    bytes_ = 3 * n * c * h * w * size + n * c * (size + 4)
-    ops = 3 * n * c * h * w
-    case["bound_ms"], case["bound_by"] = bound(bytes_, ops, name)
-    case["bytes"], case["ops"] = bytes_, ops
+    return 3 * n * c * h * w * size + n * c * (size + 4), 3 * n * c * h * w
+
+
+def _mod_levels(dtype):
+    """K3 at each modulated-conv input of one FFHQ chunk: against its plain
+    version (g_x bitwise, g_s within the tolerances), timed cold (L2 flushed)
+    beside its bound, with sums over the chunk."""
+    import torch
+    from pix2latent_tpu_torch.models.stylegan2 import modulated_conv_inputs
+    from pix2latent_tpu_torch.ops import mod_backward as MB
+
+    name = str(dtype).replace("torch.", "")
+    (rt_x, at_x), (rt_s, at_s) = MOD_TOL[name]
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    results, ok = [], True
+    for conv, shape in modulated_conv_inputs(1024, FFHQ_CHUNK):
+        n, c, h, w = shape
+        g, x = _randn(gen, shape, dtype), _randn(gen, shape, dtype)
+        s = (torch.rand((n, c), generator=gen, device="cuda") + 0.5).to(dtype)
+        gx, gs = MB.kernel_mod_backward(g, x, s)
+        gx_r, gs_r = MB.mod_backward_reference(g, x, s)
+        err_s, ok_s = max_err_within(gs, gs_r, rt_s, at_s)
+        splits, _, _ = MB.mod_backward_plan(n * c, h * w,
+                                            itemsize=g.element_size())
+        level = {"conv": conv, "shape": list(shape), "splits": splits,
+                 "gs_max_abs_err": err_s,
+                 "ok": torch.equal(gx, gx_r) and ok_s,
+                 "ms": cold_ms(lambda: MB.kernel_mod_backward(g, x, s), flush),
+                 "composite_ms": cold_ms(lambda: mod_composite(g, x, s),
+                                         flush),
+                 "bound_ms": bound(*mod_bytes_ops(shape, dtype), name)[0]}
+        ok = ok and level["ok"]
+        results.append(level)
+        del g, x, gx, gx_r
+    case = {"kernel": "ffhq_mod_levels", "dtype": name, "levels": results,
+            "ok": ok and len(results) == 26}
+    for field in ("ms", "composite_ms", "bound_ms"):
+        case[f"sum_{field}"] = sum(lv[field] for lv in results)
+    del flush
     return case
 
 
 def phase_kernels():
     import torch
+    t0 = time.perf_counter()
     cases = []
     for dtype in (torch.float32, torch.bfloat16):
         cases.append(_attention_case(FLAGSHIP, dtype, timed=True))
         cases.append(_attention_case(RAGGED, dtype, timed=False))
-        if dtype == torch.bfloat16:
-            cases.append(_attention_case(BIGGAN128, dtype, timed=True))
+        cases.append(_attention_case(BIGGAN128, dtype, timed=True))
         torch.cuda.empty_cache()
         cases.append(_fir_case(*FIR_PATH, dtype, timed=True))
         cases.append(_fir_case(*FIR_RAGGED, dtype, timed=False))
@@ -511,11 +663,12 @@ def phase_kernels():
                                  "ffhq_fir_levels"))
         cases.append(dict(_mod_case(MOD_FFHQ, dtype, timed=True),
                           path="ffhq_path"))
+        cases.append(_mod_levels(dtype))
         torch.cuda.empty_cache()
     emit({"phase": "kernels",
           "kernels": ["sagan_attention_fwd", "sagan_attention_bwd",
                       "fir_blur_fwd", "fir_blur_bwd", "mod_backward"],
-          "cases": cases})
+          "cases": cases, "seconds": time.perf_counter() - t0})
     bad = [c for c in cases if not c["ok"]]
     if bad:
         raise AssertionError(f"kernel disagrees with its plain version: {bad}")
@@ -596,6 +749,7 @@ def _whole_step(phase, builder, inputs):
             variables["input"][name].grad.cpu().double() for name in inputs]
 
     tol = 1e-3
+    t0 = time.perf_counter()
     card, cpu = step("cuda"), step("cpu")
     names = ["loss"] + [f"d{name}" for name in inputs]
     rel = {name: float((a - b).norm() / b.norm().clamp_min(1e-30))
@@ -603,7 +757,8 @@ def _whole_step(phase, builder, inputs):
     result = {"phase": phase, "dtype": "float32", "population": 2,
               "rel_err": rel, "tolerance": tol, "loss": card[0].tolist(),
               "grad_norms": {name: float(t.norm())
-                             for name, t in zip(names[1:], card[1:])}}
+                             for name, t in zip(names[1:], card[1:])},
+              "seconds": time.perf_counter() - t0}
     emit(result)
     assert all(v <= tol for v in rel.values()), rel
 
@@ -891,6 +1046,83 @@ def phase_ffhq_whole_step():
                 {"z": torch.randn(2, 512, generator=gen)})
 
 
+def phase_biggan_f32_path(generations, final_steps, cases):
+    """The BigGAN BasinCMA entry point's problem in float32, so K1 takes its
+    float32 route; see the module docstring."""
+    import math
+
+    import torch
+    from pix2latent_tpu_torch import VariableManager
+    from pix2latent_tpu_torch.examples import common
+    from pix2latent_tpu_torch.examples import invert_biggan_basincma as ex
+    from pix2latent_tpu_torch.ops import attention as A
+    from pix2latent_tpu_torch.optimizers import BasinCMAOptimizer
+
+    args = ex.parser().parse_args(["--device", "cuda"])
+    args.grad_free = True
+    model = common.load_biggan(args)
+    target, weight = common.load_target(args, model)
+    vm = common.register_biggan_vars(VariableManager(device="cuda"), model,
+                                     args, target, weight)
+    opt = BasinCMAOptimizer(model, vm, common.make_loss(args),
+                            max_batch_size=args.max_minibatch, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    A.reset_launch_counts()
+    t0 = time.perf_counter()
+    variables, outs, final = opt.optimize(generations, GRAD_STEPS,
+                                          last_grad_steps=final_steps)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = A.launch_counts()
+
+    full = ex.schedule(argparse.Namespace(smoke=False))
+    out = opt.out
+    tell_mins = opt.losses
+    final_min = float(final[0][1]["loss"].min())
+    expect = {"fwd": generations * (GRAD_STEPS + 1) + final_steps,
+              "bwd": generations * GRAD_STEPS + final_steps}
+    steady = opt.gen_seconds[1:] or opt.gen_seconds
+    gen_s = statistics.mean(steady)
+    # K1's float32 forward + backward at this shape, from the kernels phase,
+    # against the seconds of an inner step (a generation's 30 steps and its
+    # tell)
+    k1 = next(c for c in cases if c["kernel"] == "sagan_attention"
+              and c["dtype"] == "float32" and tuple(c["shape"]) == FLAGSHIP)
+    step_ms = 1e3 * gen_s / GRAD_STEPS
+    result = {
+        "phase": "biggan_f32_path", "model": "biggan-deep-256",
+        "entry_point": "pix2latent_tpu_torch/examples/invert_biggan_basincma.py",
+        "channel_width": model.generator.ch, "dtype": "float32",
+        "population": opt.num_samples, "grad_steps": GRAD_STEPS,
+        "generations": generations, "final_steps": final_steps,
+        "shortened": ("no" if (generations, GRAD_STEPS, final_steps) == full
+                      else f"{generations} of {full[0]} generations, "
+                      f"{final_steps} of {full[2]} final Adam steps"),
+        "seconds": seconds, "gen_seconds": opt.gen_seconds,
+        "seconds_per_generation": gen_s,
+        "images_per_sec": opt.num_samples * GRAD_STEPS / gen_s,
+        "step_ms": step_ms,
+        "k1_f32_ms_per_step": k1["fwd_ms"] + k1["bwd_ms"],
+        "k1_share_of_step": (k1["fwd_ms"] + k1["bwd_ms"]) / step_ms,
+        "tell_min_per_generation": tell_mins, "final_min_loss": final_min,
+        "out_shape": list(out.shape), "collage_shape": list(outs[0].shape),
+        "attention_launches": counts, "expected_launches": expect,
+        "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    emit(result)
+    assert opt.num_samples == POP, opt.num_samples
+    assert model.generator.ch == 128 and model.generator.dtype == torch.float32
+    assert tuple(out.shape) == (POP, 256, 256, 3), out.shape
+    assert bool(torch.isfinite(out).all())
+    assert len(tell_mins) == generations, tell_mins
+    assert all(math.isfinite(v) for v in tell_mins), tell_mins
+    assert math.isfinite(final_min) and final_min < tell_mins[0], (
+        f"no convergence: first generation {tell_mins[0]}, final {final_min}")
+    assert counts == expect, (counts, expect)
+    assert counts["fwd"] > 0 and counts["bwd"] > 0
+    return counts
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--generations", type=int, default=30)
@@ -901,6 +1133,9 @@ def main(argv=None):
     # a longer finish than a generation's 30 steps: at 30 the final loss
     # came within 1 % of the first generation's on the card
     ap.add_argument("--ffhq-final-steps", type=int, default=100)
+    # the BigGAN entry point's 30 x 30 + 300 cut to about a minute
+    ap.add_argument("--biggan-generations", type=int, default=3)
+    ap.add_argument("--biggan-final-steps", type=int, default=30)
     args = ap.parse_args(argv)
     t0 = time.perf_counter()
 
@@ -928,10 +1163,12 @@ def main(argv=None):
     ffhq_counts = phase_ffhq_path(args.ffhq_generations,
                                   args.ffhq_final_steps)
     phase_ffhq_whole_step()
+    f32_counts = phase_biggan_f32_path(args.biggan_generations,
+                                       args.biggan_final_steps, cases)
 
-    def timed_bf16(kernel, path):   # the bf16 case at the path's shape
+    def timed(kernel, path, dtype="bfloat16"):   # the case at the path's shape
         return next(c for c in cases if c["kernel"] == kernel
-                    and c["dtype"] == "bfloat16"
+                    and c["dtype"] == dtype
                     and ("ms" in c or "fwd_ms" in c)
                     and c.get("path", "main") == path
                     and (kernel != "sagan_attention"
@@ -940,6 +1177,9 @@ def main(argv=None):
     kernels = []
     for kernel, path, suffix, launches, src, site in (
             ("sagan_attention", "main", "", counts, "sagan_attention.cu",
+             {"fwd": "attention.py:131", "bwd": "attention.py:154"}),
+            ("sagan_attention", "biggan_f32_path", "_f32", f32_counts,
+             "sagan_attention.cu",
              {"fwd": "attention.py:131", "bwd": "attention.py:154"}),
             ("fir_blur", "main", "", {"fwd": sg2_counts["fir_blur_fwd"],
                                       "bwd": sg2_counts["fir_blur_bwd"]},
@@ -950,7 +1190,8 @@ def main(argv=None):
               "bwd": ffhq_counts["fir_blur_bwd"]},
              "fir_blur.cu", {"fwd": "pallas_fir.py:108",
                              "bwd": "pallas_fir.py:108"})):
-        case = timed_bf16(kernel, path)
+        case = (timed(kernel, "main", "float32") if path == "biggan_f32_path"
+                else timed(kernel, path))
         for key in ("fwd", "bwd"):
             extra = ({"design": case["design"]}
                      if kernel == "sagan_attention" else {})
@@ -966,7 +1207,7 @@ def main(argv=None):
                 "library_ms": case[f"library_{key}_ms"], **extra})
     for path, suffix, launches in (("main", "", sg2_counts),
                                    ("ffhq_path", "_ffhq", ffhq_counts)):
-        case = timed_bf16("mod_backward", path)
+        case = timed("mod_backward", path)
         kernels.append({
             "name": f"mod_backward{suffix}", "route": "cuda",
             "source": "pix2latent_tpu_torch/csrc/mod_backward.cu",

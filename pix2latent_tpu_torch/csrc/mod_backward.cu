@@ -21,37 +21,58 @@
 // Shapes: g, x [n, c, h, w] (NCHW, contiguous) and s [n, c], all float32 or
 // all bfloat16; g_x like g, g_s [n, c] float32. StyleGAN2-cars-512 at pop 22
 // runs it on every modulated conv's input, from [22, 512, 4, 4] to
-// [22, 64, 512, 512]: 23 launches per backward.
+// [22, 64, 512, 512] (23 launches per backward); FFHQ-1024 under its recipe
+// on 2-sample chunks, from [2, 512, 4, 4] to [2, 32, 1024, 1024] (26).
 //
 // Bound on an H100 SXM: 2 FLOPs per element against 3 * size bytes moved
 // (g and x read, g_x written), so the kernel is bound by bytes,
 // 3 * n*c*h*w * size plus s and g_s. At [22, 64, 512, 512] in bf16 that is
-// 1.11 GB, 0.33 ms at 3.35 TB/s; all 23 modulated convs of one backward
-// move about 10.5 GB, 3.1 ms.
+// 1.11 GB, 0.33 ms at 3.35 TB/s; at [2, 32, 1024, 1024] 0.40 GB, 0.12 ms.
 //
 // Design. The Pallas kernel walks [rows, c] tiles of an NHWC tensor and
 // carries g_s across the row blocks of its sequential grid. Blocks on the
-// card run in no order, so here one block owns a whole (n, c) plane, which is
-// contiguous in NCHW: a block-stride loop over h*w writes g * s and keeps a
-// per-thread f64 partial of g * x, then a warp-shuffle and shared-memory
-// reduction gives g_s, written once by thread 0. No atomics, so the result
-// is deterministic. Where the plane is a whole number of 16-byte vectors and
-// the pointers are 16-byte aligned, every load and store moves 16 bytes a
-// thread (4 f32 or 8 bf16 values); otherwise one element a thread. Small
-// planes get smaller blocks (32 threads at least), so the 4x4 levels do not
-// idle 256 threads on 16 values.
+// card run in no order, and an (n, c) plane is contiguous in NCHW, so a
+// plane is cut into `splits` contiguous ranges, one block each, and the
+// blocks of a plane form one thread-block cluster (cudaLaunchKernelEx with
+// a cluster dimension of `splits`, at most 8, the portable size). A 2-sample
+// chunk of FFHQ has 64 planes at its largest level: one block a plane would
+// leave half of the 132 SMs idle, which held the first version of this
+// kernel at about a third of its bound there.
+//   * Each block streams its range: a thread issues the loads of UNROLL
+//     16-byte vectors of g and of x before it uses any (4 KB a warp in
+//     flight), writes g * s and keeps an f64 partial of the exact products.
+//   * The block reduces its partials: a warp shuffle, then warp 0 over the
+//     warps' sums, always in the same order.
+//   * After cluster.sync(), rank 0 reads the peers' block sums through
+//     distributed shared memory (map_shared_rank) in rank order and writes
+//     g_s once; a second cluster.sync() keeps the peers' shared memory alive
+//     until it has been read.
+// No atomics, no workspace, no second launch: the result does not depend on
+// the schedule, and two calls give the same bits.
+//
+// The plan (splits, threads, vector width) is chosen in Python
+// (ops/mod_backward.py: mod_backward_plan) and passed in; this file checks
+// it. Where the plane is a whole number of 16-byte vectors and the pointers
+// are 16-byte aligned, every load and store moves 16 bytes a thread (4 f32
+// or 8 bf16 values) and every range starts on a vector, so on a 16-byte
+// boundary; otherwise one element a thread.
 //
 // C interface, bound from Python with ctypes: returns the cudaError_t of the
 // launch (0 on success) and does not synchronise.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <stddef.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
 constexpr int kMaxThreads = 256;
+constexpr int kMaxSplits = 8;   // a portable cluster
+constexpr int kUnroll = 4;      // vectors of g and of x a thread has in flight
 
 template <typename T> __device__ __forceinline__ float to_f(T v);
 template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
@@ -82,32 +103,52 @@ struct alignas(sizeof(T) * VEC) Pack {
   T v[VEC];
 };
 
+// Vectors [rank * chunk, min(packs, (rank + 1) * chunk)) of plane
+// blockIdx.x / splits, rank = blockIdx.x % splits (the block's rank in its
+// cluster).
 template <typename T, int VEC>
 __global__ void __launch_bounds__(kMaxThreads)
 mod_backward_kernel(const T* __restrict__ g, const T* __restrict__ x,
                     const T* __restrict__ s, T* __restrict__ gx,
-                    float* __restrict__ gs, int hw) {
+                    float* __restrict__ gs, int hw, int splits, int chunk) {
   __shared__ double partial[kMaxThreads / 32];
-  const size_t plane = blockIdx.x;
+  __shared__ double block_sum;
+  const int rank = (int)(blockIdx.x % (unsigned)splits);
+  const size_t plane = blockIdx.x / (unsigned)splits;
   const size_t base = plane * (size_t)hw;
   const float sv = to_f<T>(s[plane]);
   const Pack<T, VEC>* gp = reinterpret_cast<const Pack<T, VEC>*>(g + base);
   const Pack<T, VEC>* xp = reinterpret_cast<const Pack<T, VEC>*>(x + base);
   Pack<T, VEC>* op = reinterpret_cast<Pack<T, VEC>*>(gx + base);
 
-  double acc = 0.0;
   const int packs = hw / VEC;
-  for (int i = threadIdx.x; i < packs; i += blockDim.x) {
-    const Pack<T, VEC> gv = gp[i];
-    const Pack<T, VEC> xv = xp[i];
-    Pack<T, VEC> ov;
+  const int begin = rank * chunk;
+  const int end = min(packs, begin + chunk);
+  const int stride = blockDim.x;
+  double acc = 0.0;
+  for (int i0 = begin + threadIdx.x; i0 < end; i0 += kUnroll * stride) {
+    Pack<T, VEC> gv[kUnroll], xv[kUnroll];
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) {
-      const float gf = to_f<T>(gv.v[e]);
-      ov.v[e] = from_f<T>(gf * sv);
-      acc += exact_product<T>(gf, to_f<T>(xv.v[e]));
+    for (int u = 0; u < kUnroll; ++u) {
+      const int i = i0 + u * stride;
+      if (i < end) {
+        gv[u] = gp[i];
+        xv[u] = xp[i];
+      }
     }
-    op[i] = ov;
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int i = i0 + u * stride;
+      if (i >= end) continue;
+      Pack<T, VEC> ov;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        const float gf = to_f<T>(gv[u].v[e]);
+        ov.v[e] = from_f<T>(gf * sv);
+        acc += exact_product<T>(gf, to_f<T>(xv[u].v[e]));
+      }
+      op[i] = ov;
+    }
   }
 
 #pragma unroll
@@ -121,29 +162,60 @@ mod_backward_kernel(const T* __restrict__ g, const T* __restrict__ x,
     acc = lane < warps ? partial[lane] : 0.0;
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    if (lane == 0) gs[plane] = (float)acc;
   }
+  if (splits == 1) {
+    if (threadIdx.x == 0) gs[plane] = (float)acc;
+    return;
+  }
+  cg::cluster_group cluster = cg::this_cluster();
+  if (threadIdx.x == 0) block_sum = acc;
+  cluster.sync();
+  if (rank == 0 && threadIdx.x == 0) {
+    double total = 0.0;
+    for (int r = 0; r < splits; ++r) total += *cluster.map_shared_rank(&block_sum, r);
+    gs[plane] = (float)total;
+  }
+  cluster.sync();
 }
 
-int threads_for(int work) {
-  int t = 32;
-  while (t < kMaxThreads && t < work) t <<= 1;
-  return t;
+template <typename T, int VEC>
+cudaError_t launch(const void* g, const void* x, const void* s, void* gx, float* gs,
+                   int planes, int hw, int splits, int threads, cudaStream_t st) {
+  const int packs = hw / VEC;
+  const int chunk = (packs + splits - 1) / splits;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)planes * (unsigned)splits);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, mod_backward_kernel<T, VEC>, (const T*)g, (const T*)x, (const T*)s, (T*)gx,
+      gs, hw, splits, chunk);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
+
+bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 template <typename T>
-cudaError_t launch(const void* g, const void* x, const void* s, void* gx, float* gs,
-                   int planes, int hw, cudaStream_t st) {
+cudaError_t dispatch(const void* g, const void* x, const void* s, void* gx, float* gs,
+                     int planes, int hw, int splits, int threads, int vec,
+                     cudaStream_t st) {
   constexpr int kVec = 16 / sizeof(T);
-  const bool aligned = ((uintptr_t)g | (uintptr_t)x | (uintptr_t)gx) % 16 == 0;
-  if (aligned && hw % kVec == 0) {
-    mod_backward_kernel<T, kVec><<<planes, threads_for(hw / kVec), 0, st>>>(
-        (const T*)g, (const T*)x, (const T*)s, (T*)gx, gs, hw);
-  } else {
-    mod_backward_kernel<T, 1><<<planes, threads_for(hw), 0, st>>>(
-        (const T*)g, (const T*)x, (const T*)s, (T*)gx, gs, hw);
+  if (vec == kVec) {
+    if (hw % kVec != 0 || !aligned16(g) || !aligned16(x) || !aligned16(gx))
+      return cudaErrorInvalidValue;
+    return launch<T, kVec>(g, x, s, gx, gs, planes, hw, splits, threads, st);
   }
-  return cudaGetLastError();
+  if (vec != 1) return cudaErrorInvalidValue;
+  return launch<T, 1>(g, x, s, gx, gs, planes, hw, splits, threads, st);
 }
 
 }  // namespace
@@ -151,14 +223,22 @@ cudaError_t launch(const void* g, const void* x, const void* s, void* gx, float*
 extern "C" {
 
 // g, x [planes, hw] and s [planes] in one type (planes = n * c); g_x like g,
-// g_s [planes] f32.
+// g_s [planes] f32. The plan: `splits` blocks (one cluster) a plane, 1..8;
+// `threads` a block, a multiple of 32 up to 256; `vec` elements a load, 1 or
+// 16 bytes' worth (which needs hw a multiple of it and 16-byte pointers).
 int mod_backward(const void* g, const void* x, const void* s, void* gx, void* gs,
-                 int planes, int hw, int is_bf16, void* stream) {
-  if (planes < 1 || hw < 1) return (int)cudaErrorInvalidValue;
+                 int planes, int hw, int is_bf16, int splits, int threads, int vec,
+                 void* stream) {
+  if (planes < 1 || hw < 1 || splits < 1 || splits > kMaxSplits || threads < 32 ||
+      threads > kMaxThreads || threads % 32 != 0 ||
+      (long long)planes * splits >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (is_bf16)
-    return (int)launch<__nv_bfloat16>(g, x, s, gx, (float*)gs, planes, hw, st);
-  return (int)launch<float>(g, x, s, gx, (float*)gs, planes, hw, st);
+    return (int)dispatch<__nv_bfloat16>(g, x, s, gx, (float*)gs, planes, hw, splits,
+                                        threads, vec, st);
+  return (int)dispatch<float>(g, x, s, gx, (float*)gs, planes, hw, splits, threads,
+                              vec, st);
 }
 
 }  // extern "C"

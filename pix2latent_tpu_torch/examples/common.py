@@ -3,10 +3,11 @@
 canonical variable registration, the loss and the result file.
 
 Every example runs offline: random weights from a seed unless
-``--checkpoint`` names a converted ``.npz`` or a rosinality ``g_ema``
-checkpoint, and a synthetic self-generated target. Reading a target image,
-a mask, or writing images and videos needs the image codecs, which are not
-ported yet: ``--fp``, ``--mask_fp`` and ``--make_video`` raise.
+``--checkpoint`` names a converted ``.npz`` (for StyleGAN2 also a
+rosinality ``g_ema`` checkpoint), and a synthetic self-generated target.
+Reading a target image, a mask, or writing images and videos needs the
+image codecs, which are not ported yet: ``--fp``, ``--mask_fp`` and
+``--make_video`` raise.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import argparse
 import os
 import os.path as osp
 import warnings
+import zipfile
 
 import numpy as np
 import torch
@@ -80,6 +82,27 @@ def check_ported(args):
                 "the port brings")
 
 
+def load_biggan(args):
+    """BigGAN-deep-256 as the JAX package's ``load_biggan`` builds it: float32
+    (no bf16 flag for BigGAN), so its SA-GAN attention takes the kernel's
+    float32 route. ``--checkpoint`` must be a ``.npz`` written by the JAX
+    package's ``save_params_npz``."""
+    from pix2latent_tpu_torch.models.biggan import BigGAN
+    with warnings.catch_warnings():
+        if args.checkpoint:
+            path = args.checkpoint
+            if not (path.endswith(".npz") and zipfile.is_zipfile(path)):
+                raise NotImplementedError(
+                    f"--checkpoint {path!r} is not a .npz of the JAX "
+                    "package's save_params_npz: converting a torch BigGAN "
+                    "checkpoint is not ported yet (ROADMAP.md, queue 1 "
+                    "item 2)")
+            return BigGAN("biggan-deep-256", pretrained_path=path,
+                          device=args.device)
+        warnings.simplefilter("ignore")
+        return BigGAN("biggan-deep-256", device=args.device)
+
+
 def load_stylegan2(args):
     """StyleGAN2 as the JAX package's ``load_stylegan2`` builds it: the
     hand-written kernels' flags at their defaults (off)."""
@@ -99,14 +122,41 @@ def load_stylegan2(args):
 
 def load_target(args, model):
     """Target and weight, NHWC [im, im, 3] in [-1, 1]: the synthetic
-    self-generated target (the image of a z drawn from a generator seeded
-    1, through the z path even in w+ search) and a weight of ones."""
+    self-generated target and a weight of ones. For BigGAN the image of a z
+    of 128 and the class embedding of ``--class_lbl``, for StyleGAN2 of a z
+    of 512 through the z path even in w+ search; z is drawn from a torch
+    generator seeded 1, so the target differs from the JAX package's (whose
+    z comes from ``PRNGKey(1)``)."""
     print("no --fp given: using a synthetic self-generated target")
     gen = torch.Generator(device=model.device).manual_seed(1)
-    z = torch.randn((1, 512), generator=gen, device=model.device)
     with torch.no_grad():
-        target = model.generator(z).clamp(-1.0, 1.0).permute(0, 2, 3, 1)[0]
+        if hasattr(model, "get_class_embedding"):
+            z = torch.randn((1, 128), generator=gen, device=model.device)
+            target = model(z, model.get_class_embedding(args.class_lbl))[0]
+        else:
+            z = torch.randn((1, 512), generator=gen, device=model.device)
+            target = model.generator(z).clamp(-1.0, 1.0).permute(0, 2, 3,
+                                                                 1)[0]
     return target, torch.ones_like(target)
+
+
+def register_biggan_vars(vm, model, args, target, weight):
+    """The canonical BigGAN registration: z folded into the truncation by
+    its distribution and clamped by its hook, c at lr 0.01 from the class
+    embedding of ``--class_lbl``, and the target and weight."""
+    im = target.shape[0]
+    vm.register("z", shape=(128,), var_type="input",
+                grad_free=getattr(args, "grad_free", False),
+                distribution=dist.TruncatedNormalModulo(
+                    sigma=1.0, trunc=args.truncate),
+                learning_rate=args.lr, hook_fn=hooks.Clamp(args.truncate))
+    vm.register("c", shape=(128,), var_type="input", learning_rate=0.01,
+                default=model.get_class_embedding(args.class_lbl)[0])
+    vm.register("target", shape=(im, im, 3), var_type="output",
+                requires_grad=False, default=target)
+    vm.register("weight", shape=(im, im, 3), var_type="output",
+                requires_grad=False, default=weight)
+    return vm
 
 
 def register_stylegan2_vars(vm, model, args, target, weight, loss_mask=None):

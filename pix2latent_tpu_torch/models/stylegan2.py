@@ -70,6 +70,23 @@ def channels_for(res: int, channel_multiplier: int = 2) -> int:
     }[res]
 
 
+def modulated_conv_inputs(im_res: int, n: int, channel_multiplier: int = 2):
+    """``(name, (n, ch, r, r))`` of each modulated conv's input in the
+    generator at ``im_res`` on ``n`` samples, in the forward's order. The
+    modulation scales a conv's input, so these are the shapes the fused
+    modulation backward (K3) takes: conv1 and to_rgb1 at 4 px, then at each
+    r = 8 .. im_res the up-conv (on the r/2 input), the conv and to_rgb."""
+    cm = channel_multiplier
+    shapes = [("conv1", (n, channels_for(4, cm), 4, 4)),
+              ("to_rgb1", (n, channels_for(4, cm), 4, 4))]
+    for i in range(3, int(math.log2(im_res)) + 1):
+        r = 2 ** i
+        shapes += [(f"up_conv{r}", (n, channels_for(r // 2, cm), r // 2, r // 2)),
+                   (f"conv{r}", (n, channels_for(r, cm), r, r)),
+                   (f"to_rgb{r}", (n, channels_for(r, cm), r, r))]
+    return shapes
+
+
 def pixel_norm(x, eps=1e-8):
     return x * torch.rsqrt((x ** 2).mean(dim=-1, keepdim=True) + eps)
 

@@ -12,10 +12,12 @@ kernel there; its source note gives its bound and design. On a CUDA tensor
 type the kernel does not take; on a CPU tensor it runs
 :func:`sagan_attention_reference`.
 
-The kernel's route is chosen by the input type alone: bfloat16 runs the
-tensor-core kernels (``mma.sync``, bf16 tiles, f32 sums, dS as bf16 hi + lo),
-float32 the f32 FMA kernels (the tensor cores would need TF32). Both take
-every shape :func:`kernel_forward` accepts; neither stands in for the other.
+The kernel's route is chosen by the input type alone, and both run on the
+tensor cores: bfloat16 in bf16 (``mma.sync``, bf16 tiles, f32 sums, dS as
+bf16 hi + lo), float32 in 3xTF32 (each f32 operand split into tf32 hi + lo,
+each product ``lo.hi + hi.lo + hi.hi`` summed in f32), which keeps float32's
+accuracy where one TF32 product would not. Both take every shape
+:func:`kernel_forward` accepts; neither stands in for the other.
 """
 
 from __future__ import annotations
@@ -47,7 +49,7 @@ def _lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.sagan_attention_fwd.argtypes = [p] * 6 + [i] * 6 + [p]
         lib.sagan_attention_fwd.restype = i
-        lib.sagan_attention_bwd.argtypes = [p] * 10 + [i] * 6 + [p]
+        lib.sagan_attention_bwd.argtypes = [p] * 12 + [i] * 6 + [p]
         lib.sagan_attention_bwd.restype = i
         lib.sagan_attention_work.argtypes = [i] * 6 + [p]
         lib.sagan_attention_work.restype = i
@@ -116,22 +118,32 @@ def kernel_forward(theta, phi, g):
     return o, m, l
 
 
-def kernel_backward(theta, phi, g, do, m, l):
-    """One backward call (two kernels): ``(dtheta, dphi, dg)``."""
+def kernel_backward(theta, phi, g, do, o, m, l):
+    """One backward call (two kernels): ``(dtheta, dphi, dg)``, from the
+    forward's ``(o, m, l)`` (the float32 route reads ``o``)."""
     _check(theta, phi, g)
     n, q, d = theta.shape
     k, dv = g.shape[1], g.shape[2]
     do = do.to(theta.dtype).contiguous()
     if do.shape != (n, q, dv) or do.device != theta.device:
         raise ValueError(f"sagan_attention: bad output gradient {do.shape}")
+    if o.shape != (n, q, dv) or o.dtype != theta.dtype \
+            or o.device != theta.device or not o.is_contiguous():
+        raise ValueError(f"sagan_attention: bad forward output {o.shape}")
     dtheta = torch.empty_like(theta)
     dphi = torch.empty_like(phi)
     dg = torch.empty_like(g)
     delta = torch.empty((n, q), dtype=torch.float32, device=theta.device)
+    # the float32 route passes dS^T [n, k, q] from its dkv kernel to its dq
+    # one
+    ds = None if theta.dtype == torch.bfloat16 else torch.empty(
+        (n, k, q), dtype=torch.float32, device=theta.device)
     with torch.cuda.device(theta.device):
         err = _lib().sagan_attention_bwd(
-            _ptr(theta), _ptr(phi), _ptr(g), _ptr(do), _ptr(m), _ptr(l),
-            _ptr(delta), _ptr(dtheta), _ptr(dphi), _ptr(dg),
+            _ptr(theta), _ptr(phi), _ptr(g), _ptr(do), _ptr(o), _ptr(m),
+            _ptr(l), _ptr(delta),
+            ctypes.c_void_p(None) if ds is None else _ptr(ds),
+            _ptr(dtheta), _ptr(dphi), _ptr(dg),
             n, q, k, d, dv, int(theta.dtype == torch.bfloat16), _stream(theta))
     _raise_on(err, "backward")
     SaganAttentionFunction.bwd_launches += 1
@@ -141,7 +153,8 @@ def kernel_backward(theta, phi, g, do, m, l):
 def kernel_work(n, q, k, d, dv, dtype):
     """``(forward, backward)`` FLOPs that the kernels for ``dtype`` do at
     this shape, tile padding included, as the kernel source counts them from
-    its own tiles. Launches nothing."""
+    its own tiles; in float32 tensor-core FLOPs, each product three times
+    (3xTF32). Launches nothing."""
     work = (ctypes.c_double * 2)()
     err = _lib().sagan_attention_work(n, q, k, d, dv,
                                       int(dtype == torch.bfloat16), work)
@@ -162,13 +175,13 @@ class SaganAttentionFunction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, theta, phi, g):
         o, m, l = kernel_forward(theta, phi, g)
-        ctx.save_for_backward(theta, phi, g, m, l)
+        ctx.save_for_backward(theta, phi, g, o, m, l)
         return o
 
     @staticmethod
     def backward(ctx, do):
-        theta, phi, g, m, l = ctx.saved_tensors
-        return kernel_backward(theta, phi, g, do, m, l)
+        theta, phi, g, o, m, l = ctx.saved_tensors
+        return kernel_backward(theta, phi, g, do, o, m, l)
 
 
 def reset_launch_counts():

@@ -20,6 +20,11 @@ Counterpart of ``pix2latent_tpu/ops/mod_backward.py``. The kernel
 note gives its bound and design. On CUDA tensors :func:`fused_mod_backward`
 launches the kernel, and raises on a shape, type or layout it does not take;
 on CPU tensors it runs :func:`mod_backward_reference`.
+
+The kernel cuts each plane into contiguous ranges, one block each, with the
+blocks of a plane in one thread-block cluster; :func:`mod_backward_plan`
+chooses the cut here, where the CPU tests reach it, and the wrapper passes
+it to the kernel. :func:`plan_ranges` gives the ranges the kernel takes.
 """
 
 from __future__ import annotations
@@ -29,6 +34,11 @@ import ctypes
 import torch
 
 SOURCE = "mod_backward.cu"
+SMS = 132              # an H100 SXM's streaming multiprocessors
+MAX_SPLITS = 8         # blocks of a plane: one portable cluster
+MIN_BLOCK_ELEMENTS = 16 * 1024
+MAX_THREADS = 256
+UNROLL = 4             # 16-byte vectors a thread loads ahead (the kernel's)
 
 
 def _per_channel(s):
@@ -43,12 +53,46 @@ def mod_backward_reference(g, x, s):
     return gx, gs
 
 
+def mod_backward_plan(planes, hw, sms=SMS, itemsize=2, aligned=True):
+    """``(splits, threads, vec)`` of the kernel for ``planes`` (n * c) planes
+    of ``hw`` elements of ``itemsize`` bytes.
+
+    ``vec`` elements a load: 16 bytes' worth where every plane is a whole
+    number of 16-byte vectors and the pointers are ``aligned``, else 1.
+    ``splits`` blocks a plane (one cluster): 1 where the planes already fill
+    the card, else the smallest power of two up to 8 that gives at least
+    4 blocks an SM, so long as each block keeps at least 16 K elements.
+    ``threads`` a block: enough for ``UNROLL`` vectors each in one sweep of
+    the block's range, 32 to 256."""
+    per = 16 // itemsize
+    vec = per if aligned and hw % per == 0 else 1
+    splits = 1
+    while (planes * splits < 4 * sms and splits < MAX_SPLITS
+           and hw // (2 * splits) >= MIN_BLOCK_ELEMENTS):
+        splits *= 2
+    per_block = -(-(hw // vec) // splits)
+    threads = 32
+    while threads < MAX_THREADS and threads * UNROLL < per_block:
+        threads *= 2
+    return splits, threads, vec
+
+
+def plan_ranges(hw, splits, vec):
+    """The element ranges ``[start, end)`` of a plane that the kernel's
+    ``splits`` blocks take, in rank order (``csrc/mod_backward.cu``):
+    ``ceil(packs / splits)`` vectors each, the last one short."""
+    packs = hw // vec
+    chunk = -(-packs // splits)
+    return [(vec * min(packs, r * chunk), vec * min(packs, (r + 1) * chunk))
+            for r in range(splits)]
+
+
 def _lib():
     from pix2latent_tpu_torch.utils.cuda_build import load
     lib = load(SOURCE)
     if not getattr(lib, "_argtypes_set", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.mod_backward.argtypes = [p] * 5 + [i] * 3 + [p]
+        lib.mod_backward.argtypes = [p] * 5 + [i] * 6 + [p]
         lib.mod_backward.restype = i
         lib._argtypes_set = True
     return lib
@@ -86,11 +130,15 @@ def kernel_mod_backward(g, x, s):
     n, c, h, w = g.shape
     gx = torch.empty_like(g)
     gs = torch.empty((n, c), dtype=torch.float32, device=g.device)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (g, x, gx))
+    splits, threads, vec = mod_backward_plan(n * c, h * w,
+                                             itemsize=g.element_size(),
+                                             aligned=aligned)
     with torch.cuda.device(g.device):
         err = _lib().mod_backward(
             *(ctypes.c_void_p(t.data_ptr()) for t in (g, x, s, gx, gs)),
-            n * c, h * w, int(g.dtype == torch.bfloat16),
-            ctypes.c_void_p(torch.cuda.current_stream(g.device).cuda_stream))
+            n * c, h * w, int(g.dtype == torch.bfloat16), splits, threads,
+            vec, ctypes.c_void_p(torch.cuda.current_stream(g.device).cuda_stream))
     if err != 0:
         raise RuntimeError(f"mod_backward kernel launch failed: cudaError {err}")
     ModulateFunction.launches += 1

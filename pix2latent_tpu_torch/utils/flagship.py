@@ -146,8 +146,7 @@ def build_ffhq(dtype=torch.bfloat16, device="cuda", seed=0):
 # profiler names of the port's hand-written kernels (csrc/*.cu)
 HAND_WRITTEN = {
     "sagan_attention": ("fwd_mma_kernel<", "bwd_dq_mma_kernel<",
-                        "bwd_dkv_mma_kernel<", "::fwd_kernel<",
-                        "bwd_dq_kernel<", "bwd_dkv_kernel<"),
+                        "bwd_dkv_mma_kernel<", "_tf32_kernel"),
     "fir_blur": ("fir_blur_kernel<",),
     "mod_backward": ("mod_backward_kernel<",),
 }

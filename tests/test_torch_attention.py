@@ -87,3 +87,79 @@ def test_plain_version_rounds_probabilities_to_g_dtype():
     assert out.dtype == torch.bfloat16
     np.testing.assert_array_equal(out.float().numpy(),
                                   np.tile([[1.5, -2.0]], (1, 4, 1)))
+
+
+# --------------------------------------------------------------------- #
+# The float32 kernel's arithmetic: 3xTF32                                #
+# --------------------------------------------------------------------- #
+# The kernel runs float32 on the tensor cores: each f32 operand is split
+# into tf32 hi (rounded to nearest, ties away) + lo (x - hi, which the
+# tensor core reads rounded toward zero), and each product is
+# lo.hi + hi.lo + hi.hi, summed in f32 by mma.sync in k-steps of 8. This
+# emulation (products in f64, f32 sums per k-step of 8) runs the route's
+# products at a small BigGAN-deep-256-like shape: with the three terms it
+# stays within the float32 tolerances of the plain version; with one TF32
+# product (hi.hi) every product misses them, which is why the kernel splits.
+
+def _tf32(x, nearest=True):
+    bits = x.contiguous().view(torch.int32)
+    if nearest:
+        bits = bits + 0x1000
+    return (bits & ~0x1FFF).view(torch.float32)
+
+
+def _mm_tf32(a, b, terms):
+    """``a @ b`` for [n, M, K] and [n, K, N] as the kernel's tf32 products
+    (``terms`` 3 or 1) form it."""
+    ah = _tf32(a)
+    bh = _tf32(b)
+    al, bl = _tf32(a - ah, nearest=False), _tf32(b - bh, nearest=False)
+    pairs = [(al, bh), (ah, bl), (ah, bh)] if terms == 3 else [(ah, bh)]
+    acc = torch.zeros(a.shape[0], a.shape[1], b.shape[2])
+    for k0 in range(0, a.shape[2], 8):
+        for x, y in pairs:
+            part = torch.einsum("nmk,nkj->nmj", x[:, :, k0:k0 + 8].double(),
+                                y[:, k0:k0 + 8].double())
+            acc = (acc.double() + part).float()
+    return acc
+
+
+def _route(theta, phi, g, do, terms):
+    """Output and gradients of the float32 route with ``terms`` products."""
+    t = lambda x: x.transpose(1, 2).contiguous()
+    p = torch.softmax(_mm_tf32(theta, t(phi), terms), dim=-1)
+    o = _mm_tf32(p, g, terms)
+    dp = _mm_tf32(do, t(g), terms)
+    ds = p * (dp - (do * o).sum(-1, keepdim=True))
+    return o, _mm_tf32(ds, phi, terms), _mm_tf32(t(ds), theta, terms), \
+        _mm_tf32(t(p), do, terms)
+
+
+def _tolerance_ratios(terms):
+    # 0.5 * N(0, 1) inputs, as the card tests and chip_smoke.py draw them
+    theta, phi, g, do = (0.5 * torch.tensor(a) for a in
+                         _inputs(4, (1, 128, 64, 64, 256)))
+    ins = [t.clone().requires_grad_(True) for t in (theta, phi, g)]
+    out = TA.sagan_attention_reference(*ins)
+    want = [out.detach()] + list(torch.autograd.grad(out, ins, do))
+    got = _route(theta, phi, g, do, terms)
+    tols = TOL["float32"]
+    return [float(((a - b).abs() / (tol + tol * b.abs())).max())
+            for a, b, tol in zip(got, want, (tols[0],) + (tols[1],) * 3)]
+
+
+def test_three_tf32_products_keep_float32_tolerances():
+    # output, dtheta, dphi, dg
+    assert max(_tolerance_ratios(3)) < 0.25
+
+
+def test_one_tf32_product_misses_float32_tolerances():
+    assert min(_tolerance_ratios(1)) > 2.0
+
+
+def test_tf32_rounding_is_to_nearest_ties_away():
+    one = 1.0 + 2.0 ** -10                       # the tf32 neighbour of 1
+    x = torch.tensor([1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11),
+                      1.0 + 2.0 ** -11 - 2.0 ** -23, 3.0])
+    np.testing.assert_array_equal(_tf32(x).numpy(),
+                                  np.float32([one, -one, 1.0, 3.0]))

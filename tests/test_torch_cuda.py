@@ -7,12 +7,18 @@ the StyleGAN2 up path (cars-512 and FFHQ-1024), at plane sides around its
 float32 the 1025-wide rows take the column-segment mode), at 1 to 8 taps
 with asymmetric pads, on inputs that start one element past a 16-byte
 boundary, and for bitwise repeatability. K3 is also held at the FFHQ-1024
-chunk's largest level, [2, 32, 1024, 1024]. Recompute in the backward
+chunk's largest level, [2, 32, 1024, 1024], at all 26 of the chunk's
+modulated-conv inputs, at ragged planes and on inputs one element past a
+16-byte boundary, with g_x bitwise equal to the plain version, g_s within
+one f32 ulp and two calls bitwise equal. Recompute in the backward
 (``torch.utils.checkpoint``) around blocks that launch K2 and K3, and around
 K1, relaunches their forwards and keeps the gradients. K1's bfloat16 route (the
 tensor-core kernels) is also held at every head width it takes, on peaked
 logits that pin the masking of padded keys, for bitwise repeatability, and
-for the precision of its dS products against a float64 computation.
+for the precision of its dS products against a float64 computation; its
+float32 route (3xTF32) at every head width, at the BigGAN and ragged
+shapes, for bitwise repeatability and for NaN propagation, and both
+routes' work counts against the source note.
 
 Every test here is marked ``cuda`` and skips without an NVIDIA GPU. The file
 imports neither JAX nor the JAX package, so it also runs where JAX is not
@@ -28,7 +34,8 @@ import torch
 from pix2latent_tpu_torch.ops import attention as A
 from pix2latent_tpu_torch.ops import fir_blur as FB
 from pix2latent_tpu_torch.ops import mod_backward as MB
-from pix2latent_tpu_torch.models.stylegan2 import channels_for
+from pix2latent_tpu_torch.models.stylegan2 import (channels_for,
+                                                   modulated_conv_inputs)
 
 pytestmark = pytest.mark.cuda
 
@@ -172,12 +179,56 @@ def test_bf16_work_count_matches_the_source_note(cuda, shape):
     u = 2 * n * q * k
     assert A.kernel_work(*shape, torch.bfloat16) == (u * (2 * d + dv),
                                                      u * (7 * d + 4 * dv))
-    assert A.kernel_work(*shape, torch.float32) == (u * (2 * d + dv),
-                                                    u * (5 * d + 4 * dv))
+    # the float32 route (3xTF32): three tensor-core products each, every
+    # product formed once, U (d + dv) forward and U (3d + 2dv) backward
+    assert A.kernel_work(*shape, torch.float32) == (3 * u * (d + dv),
+                                                    3 * u * (3 * d + 2 * dv))
     # padding only adds work: ragged q, k, d and dv
-    fwd, bwd = A.kernel_work(2, 100, 37, 5, 20, torch.bfloat16)
     u = 2 * 2 * 100 * 37
+    fwd, bwd = A.kernel_work(2, 100, 37, 5, 20, torch.bfloat16)
     assert fwd > u * (5 + 20) and bwd > u * (3 * 5 + 2 * 20)
+    fwd, bwd = A.kernel_work(2, 100, 37, 5, 20, torch.float32)
+    assert fwd > 3 * u * (5 + 20) and bwd > 3 * u * (3 * 5 + 2 * 20)
+
+
+@pytest.mark.parametrize("dv", [16, 128, 256, 512])
+@pytest.mark.parametrize("d", [8, 16, 32, 64, 128])
+def test_f32_head_widths_match_plain(cuda, d, dv):
+    # the float32 route (3xTF32) at every padded width of d and dv, q and k
+    # ragged against the tiles
+    _matches_plain((2, 200, 150, d, dv), torch.float32, cuda)
+
+
+@pytest.mark.parametrize("shape", [(18, 4096, 1024, 32, 128),
+                                   (2, 4100, 1030, 64, 256),
+                                   (1, 4096, 1024, 64, 256),
+                                   (3, 100, 37, 5, 20)])
+def test_f32_path_and_ragged_shapes_match_plain(cuda, shape):
+    _matches_plain(shape, torch.float32, cuda)
+
+
+@pytest.mark.parametrize("shape", [(18, 4096, 1024, 64, 256),
+                                   (2, 4100, 1030, 64, 256)])
+def test_f32_kernel_is_deterministic(cuda, shape):
+    inputs = _inputs(shape, torch.float32, cuda)
+    first = _fwd_bwd(A.sagan_attention, inputs)
+    second = _fwd_bwd(A.sagan_attention, inputs)
+    torch.cuda.synchronize()
+    for a, b, name in zip(first, second, ("out", "dtheta", "dphi", "dg")):
+        assert torch.equal(a, b), name
+
+
+def test_f32_nan_input_stays_nan(cuda):
+    # CUDA's own NaN (0x7fffffff) carries out of the tf32 rounding's add:
+    # the split keeps it in lo, so the row that reads it stays NaN
+    theta, phi, g, _ = _inputs((1, 64, 32, 16, 16), torch.float32, cuda)
+    theta[0, 5, 3] = torch.tensor(0x7FFFFFFF, dtype=torch.int32).view(
+        torch.float32)
+    theta[0, 9, 1] = float("nan")
+    out = A.sagan_attention(theta, phi, g)
+    torch.cuda.synchronize()
+    nan_rows = torch.isnan(out[0]).any(-1).nonzero().flatten().tolist()
+    assert nan_rows == [5, 9]
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):
@@ -363,6 +414,52 @@ def test_mod_backward_kernel_matches_plain(cuda, shape, dtype):
     (rt_x, at_x), (rt_s, at_s) = MOD_TOL[dtype]
     torch.testing.assert_close(gx.float(), gx_r.float(), rtol=rt_x, atol=at_x)
     torch.testing.assert_close(gs, gs_r, rtol=rt_s, atol=at_s)
+
+
+def _mod_exact(shape, dtype, device, offset=0, seed=4):
+    """K3 against the plain version: g_x bitwise equal, g_s within one f32
+    ulp (an f64 sum of exact products rounded once, in another order), and
+    two calls bitwise equal. ``offset`` starts g, x (and so g_x's reads)
+    that many elements past a 16-byte boundary."""
+    rng = np.random.RandomState(seed)
+    n, c, h, w = shape
+
+    def mk():
+        flat = torch.tensor(rng.randn(n * c * h * w + offset).astype(
+            np.float32), device=device).to(dtype)
+        return flat[offset:].view(shape)
+
+    g, x = mk(), mk()
+    s = torch.tensor(rng.rand(n, c).astype(np.float32) + 0.5,
+                     device=device).to(dtype)
+    MB.reset_launch_counts()
+    gx, gs = MB.fused_mod_backward(g, x, s)
+    again = MB.fused_mod_backward(g, x, s)
+    gx_r, gs_r = MB.mod_backward_reference(g, x, s)
+    torch.cuda.synchronize()
+    assert MB.launch_counts() == {"bwd": 2}
+    assert torch.equal(gx, gx_r)
+    ulps = (gs.view(torch.int32).long() - gs_r.view(torch.int32).long()).abs()
+    assert int(ulps.max()) <= 1
+    assert torch.equal(again[0], gx) and torch.equal(again[1], gs)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", sorted({shape for _, shape in
+                                          modulated_conv_inputs(1024, 2)}))
+def test_mod_backward_ffhq_levels_exact(cuda, shape, dtype):
+    _mod_exact(shape, dtype, cuda)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("shape", [(3, 5, 7, 9), (2, 16, 33, 31),
+                                   (2, 8, 300, 301), (2, 32, 1024, 1024),
+                                   (22, 64, 512, 512)])
+def test_mod_backward_ragged_and_unaligned_exact(cuda, shape, offset, dtype):
+    # (2, 8, 300, 301): a ragged plane split 4 ways; offset 1: element-wise
+    # loads on every shape
+    _mod_exact(shape, dtype, cuda, offset)
 
 
 def test_modulate_vjp_runs_the_kernel(cuda):

@@ -3,21 +3,33 @@
 against the JAX package's example: the same memory recipe on the same
 arguments (``tests/test_examples.py`` test_ffhq_recipe_defaults), the same
 flags, and an end-to-end run on the CPU at a tiny size (the FFHQ wrapper at
-64 px with 8 channels a layer), fused and resumed from its checkpoint."""
+64 px with 8 channels a layer), fused and resumed from its checkpoint.
+
+The BigGAN BasinCMA entry point
+(``pix2latent_tpu_torch/examples/invert_biggan_basincma.py``) likewise: the
+JAX example's flags plus ``--device``, the same variable registration as
+the JAX package's ``register_biggan_vars``, and a run on the CPU at a tiny
+size (the BigGAN-deep-256 wrapper with the 128 px layout and 4 channels a
+layer), through both drivers, resumed from its checkpoint."""
 
 import argparse
 import importlib.util
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
+from pix2latent_tpu_torch import VariableManager
 from pix2latent_tpu_torch.examples import common
+from pix2latent_tpu_torch.examples import invert_biggan_basincma as bg
 from pix2latent_tpu_torch.examples import \
     invert_stylegan2_ffhq_basincma as ffhq
+from pix2latent_tpu_torch.models import biggan as B
 from pix2latent_tpu_torch.models import stylegan2 as S
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -53,11 +65,16 @@ def _flags(parser):
     return {a.dest for a in parser._actions} - {"help"}
 
 
-def test_flags_are_the_jax_examples_plus_device():
+def _jax_common():
     jax_common = sys.modules.get("examples.common")
     if jax_common is None:
         sys.path.insert(0, str(ROOT))
         import examples.common as jax_common
+    return jax_common
+
+
+def test_flags_are_the_jax_examples_plus_device():
+    jax_common = _jax_common()
     want = _flags(jax_common.base_parser("", model="stylegan2"))
     got = _flags(common.base_parser("", model="stylegan2"))
     assert got == want | {"device"}
@@ -112,3 +129,136 @@ def test_help_exits_zero():
          "--help"], cwd=ROOT, capture_output=True, timeout=120)
     assert proc.returncode == 0, proc.stderr.decode()[-800:]
     assert b"--remat_from_res" in proc.stdout and b"--device" in proc.stdout
+
+
+# --------------------------------------------------------------------- #
+# BigGAN BasinCMA                                                         #
+# --------------------------------------------------------------------- #
+
+def test_biggan_flags_are_the_jax_examples_plus_device():
+    # the JAX example builds its parser inside main(): base_parser plus the
+    # flags its own source adds
+    src = (ROOT / "examples" / "invert_biggan_basincma.py").read_text()
+    own = set(re.findall(r'add_argument\(\s*"--(\w+)"', src))
+    assert own == {"resume", "fused"}
+    want = _flags(_jax_common().base_parser("")) | own
+    assert _flags(bg.parser()) == want | {"device"}
+    assert bg.schedule(argparse.Namespace(smoke=False)) == (30, 30, 300)
+    assert bg.schedule(argparse.Namespace(smoke=True)) == (2, 5, 10)
+
+
+class _Embedder:
+    """A model with a fixed class embedding, for the registrations."""
+
+    def __init__(self, emb, to):
+        self.emb, self.to = emb, to
+
+    def get_class_embedding(self, cls):
+        return self.to(self.emb[cls % 4][None])
+
+
+def _spec(info):
+    dist, hook = info["distribution"], info["hook_fn"]
+    default = info["default"]
+    return {"shape": tuple(info["shape"]), "var_type": info["var_type"],
+            "requires_grad": bool(info["requires_grad"]),
+            "learning_rate": float(info["learning_rate"]),
+            "grad_free": info["grad_free"],
+            "distribution": None if dist is None else (
+                type(dist).__name__, float(dist.sigma), float(dist.trunc)),
+            "hook": None if hook is None else (type(hook).__name__,
+                                               float(hook.trunc)),
+            "default": None if default is None else np.asarray(
+                default.cpu() if hasattr(default, "cpu") else default)}
+
+
+def test_register_biggan_vars_matches_jax():
+    import jax.numpy as jnp
+
+    from pix2latent_tpu import VariableManager as JaxVariableManager
+    rng = np.random.RandomState(0)
+    emb = rng.randn(4, 128).astype(np.float32)
+    target = rng.rand(8, 8, 3).astype(np.float32)
+    weight = np.ones((8, 8, 3), np.float32)
+    args = argparse.Namespace(class_lbl=153, lr=0.05, truncate=1.5,
+                              grad_free=True)
+    want = _jax_common().register_biggan_vars(
+        JaxVariableManager(), _Embedder(emb, jnp.asarray), args,
+        jnp.asarray(target), jnp.asarray(weight))
+    got = common.register_biggan_vars(
+        VariableManager(device="cpu"), _Embedder(emb, torch.tensor), args,
+        torch.tensor(target), torch.tensor(weight))
+    assert list(got.variable_info) == list(want.variable_info) == [
+        "z", "c", "target", "weight"]
+    for name in want.variable_info:
+        a, b = _spec(got.variable_info[name]), _spec(want.variable_info[name])
+        da, db = a.pop("default"), b.pop("default")
+        assert a == b, name
+        if db is None:
+            assert da is None, name
+        else:
+            np.testing.assert_array_equal(da, db, err_msg=name)
+    assert _spec(got.variable_info["z"])["distribution"] == (
+        "TruncatedNormalModulo", 1.0, 1.5)
+    assert _spec(got.variable_info["c"])["learning_rate"] == 0.01
+
+
+@pytest.fixture
+def tiny_biggan(monkeypatch):
+    class TinyBigGAN(B.BigGAN):
+        def __init__(self, *args, **kwargs):
+            kwargs.setdefault("channel_width", 4)
+            super().__init__(*args, **kwargs)
+
+    monkeypatch.setattr(B, "BigGAN", TinyBigGAN)
+    monkeypatch.setitem(B.BIGGAN_CONFIGS, "biggan-deep-256",
+                        B.BIGGAN_CONFIGS["biggan-deep-128"])
+
+
+def test_biggan_fused_run_writes_results_and_resumes(tiny_biggan, tmp_path,
+                                                     capsys):
+    args = ["--device", "cpu", "--smoke", "--fused", "--save_dir",
+            str(tmp_path), "--resume", str(tmp_path / "run.npz")]
+    bg.main(args)
+    first = dict(np.load(tmp_path / "result.npz"))
+    assert first["variables/input/z"].shape == (18, 128)
+    assert first["variables/input/c"].shape == (18, 128)
+    assert first["variables/output/target"].shape[-3:] == (128, 128, 3)
+    assert first["loss"].shape == (18,) and first["loss_step"] == 2 * 5 + 10
+    assert first["tell_min"].shape == (2,)
+    assert np.isfinite(first["loss"]).all()
+    assert os.path.exists(tmp_path / "run.npz.final")
+    capsys.readouterr()
+
+    bg.main(args)                     # everything is on disk: no step runs
+    out = capsys.readouterr().out
+    assert "resumed basin-cma fused at generation 2" in out
+    assert "resumed gradient run at step 10/10" in out
+    again = dict(np.load(tmp_path / "result.npz"))
+    for key in ("variables/input/z", "variables/input/c"):
+        np.testing.assert_array_equal(again[key], first[key])
+
+
+def test_biggan_host_loop_run_writes_results(tiny_biggan, tmp_path):
+    bg.main(["--device", "cpu", "--smoke", "--save_dir", str(tmp_path)])
+    result = np.load(tmp_path / "result.npz")
+    assert result["variables/input/z"].shape == (18, 128)
+    assert result["tell_min"].shape == (2,)
+    assert np.isfinite(result["loss"]).all()
+    assert result["tracked/z"].shape == (2 * 5 + 10, 18, 128)
+
+
+@pytest.mark.parametrize("name", ["biggan.pth", "weights.npz"])
+def test_biggan_checkpoint_other_than_npz_is_not_ported_yet(tiny_biggan,
+                                                            tmp_path, name):
+    path = tmp_path / name
+    path.write_bytes(b"not a zip archive")
+    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
+        bg.main(["--device", "cpu", "--smoke", "--checkpoint", str(path)])
+
+
+@pytest.mark.parametrize("flag", ["--fp=x.png", "--mask_fp=m.png",
+                                  "--make_video"])
+def test_biggan_codec_options_are_not_ported_yet(flag):
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        bg.main(["--device", "cpu", "--smoke", flag])

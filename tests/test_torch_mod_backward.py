@@ -101,3 +101,103 @@ def test_tensors_off_the_cpu_never_reach_the_plain_version():
     # a mix of devices is refused too, not split between the two versions
     with pytest.raises(ValueError):
         MB.fused_mod_backward(torch.zeros(2, 3, 4, 4), g, s)
+
+
+# --------------------------------------------------------------------- #
+# The kernel's plan: planes cut into ranges, one block (and cluster) each #
+# --------------------------------------------------------------------- #
+
+PLAN_SHAPES = [(22, 64, 512, 512), (2, 32, 1024, 1024), (2, 64, 512, 512),
+               (2, 128, 256, 256), (2, 512, 4, 4), (3, 5, 7, 9),
+               (2, 3, 1000, 999)]
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_plan_covers_every_element_once(shape, aligned, itemsize):
+    n, c, h, w = shape
+    splits, threads, vec = MB.mod_backward_plan(n * c, h * w,
+                                                itemsize=itemsize,
+                                                aligned=aligned)
+    assert 1 <= splits <= 8 and splits & (splits - 1) == 0
+    assert 32 <= threads <= 256 and threads % 32 == 0
+    whole = (h * w) % (16 // itemsize) == 0
+    assert vec == (16 // itemsize if aligned and whole else 1)
+    ranges = MB.plan_ranges(h * w, splits, vec)
+    assert len(ranges) == splits
+    covered = np.zeros(h * w, np.int64)
+    for start, end in ranges:
+        covered[start:end] += 1
+        if vec > 1 and start < end:
+            assert (start * itemsize) % 16 == 0 and (end - start) % vec == 0
+    np.testing.assert_array_equal(covered, 1)
+
+
+def test_plan_keeps_one_block_a_plane_where_planes_fill_the_card():
+    for itemsize in (2, 4):
+        assert MB.mod_backward_plan(22 * 64, 512 * 512,
+                                    itemsize=itemsize) == (1, 256, 16 // itemsize)
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_plan_splits_the_planes_of_a_two_sample_chunk(itemsize):
+    # [2, 64, 512, 512]: 128 planes x 8 = 1024 blocks, at least 4 an SM
+    splits, _, _ = MB.mod_backward_plan(2 * 64, 512 * 512, itemsize=itemsize)
+    assert 2 * 64 * splits >= 4 * MB.SMS
+    # [2, 32, 1024, 1024]: 64 planes take the largest portable cluster, 8,
+    # for 512 blocks (3.9 an SM; 4 an SM would take clusters of 16)
+    splits, _, _ = MB.mod_backward_plan(2 * 32, 1024 * 1024,
+                                        itemsize=itemsize)
+    assert splits == MB.MAX_SPLITS == 8 and 2 * 32 * splits >= 3.8 * MB.SMS
+    # at least 16 K elements a block
+    for n, c, r in ((2, 32, 1024), (2, 64, 512), (2, 128, 256)):
+        splits, _, _ = MB.mod_backward_plan(n * c, r * r, itemsize=itemsize)
+        assert r * r // splits >= MB.MIN_BLOCK_ELEMENTS
+
+
+def _split_sum(g, x, splits, vec):
+    """g_s as the kernel forms it: per range, an f64 sum of exact products;
+    the ranges' sums added in rank order; rounded once to f32."""
+    n, c = g.shape[:2]
+    gf = g.double().reshape(n * c, -1)
+    xf = x.double().reshape(n * c, -1)
+    total = torch.zeros(n * c, dtype=torch.float64)
+    for start, end in MB.plan_ranges(gf.shape[1], splits, vec):
+        total = total + (gf[:, start:end] * xf[:, start:end]).sum(1)
+    return total.float().reshape(n, c)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+@pytest.mark.parametrize("shape", [(3, 5, 7, 9), (2, 4, 33, 17),
+                                   (1, 3, 64, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_reduction_equals_the_plain_version(shape, splits, dtype):
+    g, x, s = (torch.tensor(a).to(dtype) for a in _inputs(shape, 7))
+    vec = 16 // g.element_size() if (shape[2] * shape[3]) % 8 == 0 else 1
+    _, gs = MB.mod_backward_reference(g, x, s)
+    assert torch.equal(_split_sum(g, x, splits, vec), gs)
+
+
+@pytest.mark.parametrize("im_res", [32, 64])
+def test_modulated_conv_inputs_are_what_the_generator_modulates(
+        monkeypatch, im_res):
+    # the shapes K3 is measured at (chip_smoke.py ffhq_mod_levels) are the
+    # shapes the generator hands modulate(), in its order (8 channels a
+    # layer, as the tests' tiny configurations have)
+    from pix2latent_tpu_torch.models import stylegan2 as S
+    monkeypatch.setattr(S, "channels_for", lambda res, cm=2: 8 + res // 8)
+    seen = []
+    real = S.modulate
+
+    def record(x, s, fused=False):
+        seen.append(tuple(x.shape))
+        return real(x, s, fused=fused)
+
+    monkeypatch.setattr(S, "modulate", record)
+    gen = S.StyleGAN2Generator(im_res=im_res, n_mlp=2)
+    with torch.no_grad():
+        gen(torch.zeros(3, S.STYLE_DIM))
+    want = S.modulated_conv_inputs(im_res, 3)
+    assert seen == [shape for _, shape in want]
+    assert len(S.modulated_conv_inputs(1024, 2)) == 26
