@@ -15,7 +15,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    on the card, in float32 and bfloat16, at the largest shape its path gives
    it and at a small ragged shape:
    - the SA-GAN attention (K1), forward and backward, at the
-     BigGAN-deep-256 and BigGAN-deep-128 shapes, with the tolerances of
+     BigGAN-deep-256 and BigGAN-deep-128 shapes (in float32 also at the
+     transform search's population 7, [7, 4096, 1024, 64, 256]), with the
+     tolerances of
      ``tests/test_attention.py``, in both routes (bfloat16: ``design``
      ``tensor-core``; float32: ``3xtf32``, each f32 product as three TF32
      products on the tensor cores); two forward + backward calls must also
@@ -120,14 +122,44 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    after: one forward per inner step and per tell, one backward per inner
    step. Prints images/s, seconds per generation, peak memory, the tell
    losses and K1's share of a step (from the ``kernels`` times).
+11. ``transform_path``: the two phases of the BigGAN transform entry point
+   (``pix2latent_tpu_torch/examples/invert_biggan_with_transform.py``),
+   built by its own functions, BigGAN-deep-256 at full width in float32:
+   the synthetic self-target warped by a known ``T_STAR`` = [1.1, 0.25,
+   -0.15] (``SpatialTransform().transform``, which takes ``t`` itself), a
+   weight of ones. The search: ``TransformBasinCMAOptimizer.optimize_fused``
+   over the spatial ``t``, population 7 (CMA's default at d = 3), z
+   propagated, 5 generations of 10 inner Adam steps (the example: 50),
+   with a checkpoint, its host syncs recorded as in ``ffhq_path`` (inside a
+   generation only the CMA tell's ``eigh``); then the same call on the
+   same checkpoint, which must run no step. The latent search:
+   ``BasinCMAOptimizer.optimize`` with ``t`` frozen at the candidate and
+   both transforms registered, population 18, 2 generations of 10 steps
+   and 30 final steps (the example: 30 x 30 + 300), its tells in the
+   un-warped frame. K1's counters are set to 0 before each phase and read
+   after it (:func:`transform_expected_launches`). Checks: a finite best
+   tell loss every generation, the last search generation's below the
+   first's, the un-warped tell apart from the warped-frame loss, exact K1
+   counts, the sync rule, the resume, and the entry point's mask
+   pre-alignment on the card against the box's arithmetic. Prints
+   images/s (pop x 10 / mean seconds per generation, the first
+   excluded), peak memory and the candidate beside ``T_STAR`` (for
+   information only).
+12. ``transform_whole_step``: one generation of the composed search
+   (spatial + hue + brightness) with injected Δt, z and c at population 2,
+   full width, float32, on the card against the CPU: the warped targets
+   and weights, one inner step's losses and gradients, and the un-warped
+   tell after the Adam update, each within rel 1e-3.
 
 Then a ``done`` line with the script's seconds, the ``{"kernels": [...]}``
 line (each K2 and K3 entry twice: at the cars path's shapes with
 ``sg2_path``'s launches, and, ``_ffhq``, at the FFHQ path's with
-``ffhq_path``'s; K1 twice: bfloat16 with ``main_path``'s launches, and,
-``_f32``, float32 with ``biggan_f32_path``'s), the card's ``nvidia-smi``
-line and the result line. It exits non-zero, printing no result, without a CUDA device or
-without the package beside it.
+``ffhq_path``'s; K1 four times: bfloat16 with ``main_path``'s launches,
+``_f32``, float32 with ``biggan_f32_path``'s, ``_f32_transform_search`` at
+population 7 with the transform search's and ``_f32_transform_latent`` with
+the latent search's), the card's ``nvidia-smi`` line and the result line.
+It exits non-zero, printing no result, without a CUDA device or without the
+package beside it.
 """
 
 import argparse
@@ -150,6 +182,7 @@ TENSOR_CORE_FLOPS = {"bfloat16": 989e12, "float32": 495e12}
 PEAK_BYTES = 3.35e12
 
 FLAGSHIP = (18, 4096, 1024, 64, 256)   # n, q, k, d, dv at 256 px, pop 18
+TRANSFORM_SEARCH = (7, 4096, 1024, 64, 256)  # the same at the search's pop 7
 BIGGAN128 = (18, 4096, 1024, 32, 128)  # the same at 128 px
 RAGGED = (3, 100, 37, 5, 20)
 # (atol = rtol) for the output and for the gradients, tests/test_attention.py
@@ -177,6 +210,13 @@ MOD_FFHQ = (FFHQ_CHUNK, 32, 1024, 1024)
 # (rtol, atol) of g_x and of g_s, tests/test_mod_backward.py
 MOD_TOL = {"float32": ((1e-6, 0.0), (5e-5, 1e-5)),
            "bfloat16": ((2e-2, 1e-2), (2e-2, 1e-2))}
+# the transform search: the self-target is warped by T_STAR (s, tx, ty), and
+# every generation refines z by 10 Adam steps; the entry point's 50 x 10
+# search and 30 x 30 + 300 latent search cut to 5 x 10 and 2 x 10 + 30
+T_STAR = (1.1, 0.25, -0.15)
+TRANSFORM_STEPS = 10
+TRANSFORM_SEARCH_GENS = 5
+TRANSFORM_LATENT = (2, 30)        # generations, final Adam steps
 
 
 def emit(obj):
@@ -648,6 +688,8 @@ def phase_kernels():
         cases.append(_attention_case(FLAGSHIP, dtype, timed=True))
         cases.append(_attention_case(RAGGED, dtype, timed=False))
         cases.append(_attention_case(BIGGAN128, dtype, timed=True))
+        if dtype == torch.float32:
+            cases.append(_attention_case(TRANSFORM_SEARCH, dtype, timed=True))
         torch.cuda.empty_cache()
         cases.append(_fir_case(*FIR_PATH, dtype, timed=True))
         cases.append(_fir_case(*FIR_RAGGED, dtype, timed=False))
@@ -875,7 +917,8 @@ def _sync_site():
     """Where a host sync was asked for: the innermost frame in this
     repository's package, as ``file:line``; the innermost frame of all,
     with its source line; and whether it was inside a fused generation
-    (``optimizers/cma_base.py``'s ``generation``)."""
+    (the ``generation`` of ``optimizers/cma_base.py`` or of
+    ``transform/transform_optimizer.py``)."""
     import linecache
     import traceback
 
@@ -884,8 +927,10 @@ def _sync_site():
     ours = [f for f in stack if "pix2latent_tpu_torch" in f.filename]
     site = ours[-1] if ours else stack[-1]
     last = stack[-1]
-    in_generation = any(f.name == "generation"
-                        and f.filename.endswith("cma_base.py") for f in ours)
+    in_generation = any(
+        f.name == "generation"
+        and f.filename.endswith(("cma_base.py", "transform_optimizer.py"))
+        for f in ours)
     return (f"{Path(site.filename).name}:{site.lineno}",
             f"{last.filename}:{last.lineno}: "
             f"{linecache.getline(last.filename, last.lineno).strip()}",
@@ -1123,6 +1168,298 @@ def phase_biggan_f32_path(generations, final_steps, cases):
     return counts
 
 
+def transform_expected_launches():
+    """K1's float32 launches of ``transform_path``'s two phases, counted
+    from the code. The search (``optimize_fused``): every generation, the
+    last too, runs 10 inner steps (a forward and a backward each) and one
+    tell forward, and the results bundle re-renders the final population
+    (one forward). The latent search (``BasinCMAOptimizer.optimize``): 10
+    inner steps and a tell a generation, then the final steps. No
+    microbatches: one launch per forward or backward."""
+    generations = TRANSFORM_SEARCH_GENS
+    latent_generations, latent_final_steps = TRANSFORM_LATENT
+    search = {"fwd": generations * (TRANSFORM_STEPS + 1) + 1,
+              "bwd": generations * TRANSFORM_STEPS}
+    latent = {"fwd": latent_generations * (TRANSFORM_STEPS + 1)
+              + latent_final_steps,
+              "bwd": latent_generations * TRANSFORM_STEPS
+              + latent_final_steps}
+    return search, latent
+
+
+def _pre_align_case(ex, args):
+    """The entry point's ``--mask_fp`` alignment through the API, on the
+    card: a synthetic mask's box against BigGAN's object prior."""
+    import torch
+    from pix2latent_tpu_torch import VariableManager
+
+    mask = torch.zeros(256, 256, 3, device="cuda")
+    mask[48:176, 80:240] = 1.0
+    target_tf, _ = ex.build_transforms(VariableManager(device="cuda"), args,
+                                       mask=mask)
+    t = target_tf.get_default_param()
+    # rows 48..175 and columns 80..239: centers (48 + 127 // 2, 80 + 159 //
+    # 2), sizes (127, 159) of 256; the prior's center (137, 127) / 255 and
+    # size (213, 210) / 255; scale by the larger side
+    s = (159 / 256) / (210 / 255)
+    want = [s, 2 * (159 / 256 - 127 / 255), 2 * (111 / 256 - 137 / 255)]
+    err = max(abs(a - b) for a, b in zip(t.tolist(), want))
+    return {"t": t.tolist(), "expected": want, "max_abs_err": err,
+            "device": str(t.device), "ok": err < 1e-6
+            and t.device.type == "cuda"}
+
+
+def phase_transform_path():
+    """The BigGAN transform entry point's two phases in float32 on a
+    misaligned self-target, at the schedules ``TRANSFORM_SEARCH_GENS`` and
+    ``TRANSFORM_LATENT``; see the module docstring."""
+    import math
+    import tempfile
+
+    import numpy as np
+    import torch
+    from pix2latent_tpu_torch import VariableManager
+    from pix2latent_tpu_torch.examples import common
+    from pix2latent_tpu_torch.examples import \
+        invert_biggan_with_transform as ex
+    from pix2latent_tpu_torch.ops import attention as A
+    from pix2latent_tpu_torch.optimizers import BasinCMAOptimizer
+    from pix2latent_tpu_torch.strategies import cma
+    from pix2latent_tpu_torch.transform import (SpatialTransform,
+                                                TransformBasinCMAOptimizer)
+
+    generations = TRANSFORM_SEARCH_GENS
+    p2_generations, p2_final_steps = TRANSFORM_LATENT
+    t_start = time.perf_counter()
+    args = ex.parser().parse_args(["--device", "cuda"])
+    args.grad_free = False
+    model = common.load_biggan(args)
+    aligned, _ = common.load_target(args, model)
+    t_star = torch.tensor([T_STAR], device="cuda")
+    target = SpatialTransform(device="cuda").transform(aligned[None],
+                                                       t_star)[0]
+    weight = torch.ones_like(target)
+
+    def make_search():
+        vm = common.register_biggan_vars(VariableManager(device="cuda"),
+                                         model, args, target, weight)
+        transforms = ex.build_transforms(vm, args)
+        opt = TransformBasinCMAOptimizer(model, vm, common.make_loss(args),
+                                         max_batch_size=args.max_minibatch,
+                                         device="cuda")
+        opt.register_transform(transforms[0], "t", "target")
+        opt.register_transform(transforms[1], "t", "weight")
+        opt.set_variable_propagation("z")
+        return vm, transforms, opt
+
+    vm, (target_tf, weight_tf), opt = make_search()
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = str(Path(tmp) / "search.npz")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        A.reset_launch_counts()
+        t0 = time.perf_counter()
+        with _RecordSyncs() as syncs:
+            opt.optimize_fused(generations, TRANSFORM_STEPS,
+                               checkpoint_path=ckpt)
+        torch.cuda.synchronize()
+        search_seconds = time.perf_counter() - t0
+        search_counts = A.launch_counts()
+        search_peak = torch.cuda.max_memory_allocated()
+
+        # resume: the whole search is on disk
+        _, _, opt2 = make_search()
+        A.reset_launch_counts()
+        t1 = time.perf_counter()
+        opt2.optimize_fused(generations, TRANSFORM_STEPS,
+                            checkpoint_path=ckpt)
+        torch.cuda.synchronize()
+        resume = {"seconds": time.perf_counter() - t1,
+                  "tell_generations_run": len(opt2.gen_seconds) - 1,
+                  "launches": A.launch_counts(),
+                  "candidate_equal": bool(np.array_equal(
+                      opt2.get_candidate(), opt.get_candidate())),
+                  "best_loss_equal": opt2._best_loss == opt._best_loss,
+                  "cma_state_equal": all(
+                      torch.equal(a, b) for a, b in zip(opt2.cma_state,
+                                                        opt.cma_state))}
+
+    candidate = opt.get_candidate()
+    s0 = target_tf.get_default_param(as_tensor=False)
+    effective = (s0 + target_tf.sensitivity * candidate).tolist()
+    tell_mins = opt.losses
+    steady = opt.gen_seconds[1:] or opt.gen_seconds
+    search_gen_s = statistics.mean(steady)
+    eigh_site = "cma.py:{}".format(next(
+        i + 1 for i, line in enumerate(
+            Path(cma.__file__).read_text().splitlines())
+        if "torch.linalg.eigh(C)" in line))
+    in_gen = syncs.count(in_generation=True)
+    frame_gap = float(np.abs(opt.final_tell - opt.loss).max()
+                      / max(np.abs(opt.loss).max(), 1e-30))
+
+    # phase 2: t frozen at the candidate, z by BasinCMA, both transforms
+    vm.edit_variable("t", {"default": candidate, "grad_free": False})
+    vm.edit_variable("z", {"learning_rate": args.lr, "grad_free": True})
+    opt_b = BasinCMAOptimizer(model, vm, common.make_loss(args),
+                              max_batch_size=args.max_minibatch,
+                              device="cuda")
+    opt_b.register_transform(target_tf, "t", "target")
+    opt_b.register_transform(weight_tf, "t", "weight")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    A.reset_launch_counts()
+    t2 = time.perf_counter()
+    variables, outs, final = opt_b.optimize(
+        p2_generations, TRANSFORM_STEPS, last_grad_steps=p2_final_steps)
+    torch.cuda.synchronize()
+    latent_seconds = time.perf_counter() - t2
+    latent_counts = A.launch_counts()
+    latent_peak = torch.cuda.max_memory_allocated()
+    latent_gen_s = statistics.mean(opt_b.gen_seconds[1:]
+                                   or opt_b.gen_seconds)
+    final_min = float(final[0][1]["loss"].min())
+    out = opt_b.out
+    pre_align = _pre_align_case(ex, args)
+
+    expect_search, expect_latent = transform_expected_launches()
+    result = {
+        "phase": "transform_path", "model": "biggan-deep-256",
+        "entry_point": ("pix2latent_tpu_torch/examples/"
+                        "invert_biggan_with_transform.py"),
+        "channel_width": model.generator.ch, "dtype": "float32",
+        "t_star": list(T_STAR),
+        "schedule": (f"search {generations} x {TRANSFORM_STEPS} (the "
+                     f"example: 50 x 10); latent {p2_generations} x "
+                     f"{TRANSFORM_STEPS} + {p2_final_steps} (the example's "
+                     "basincma: 30 x 30 + 300)"),
+        "search": {
+            "driver": "TransformBasinCMAOptimizer.optimize_fused",
+            "population": opt.num_samples, "seconds": search_seconds,
+            "gen_seconds": opt.gen_seconds,
+            "seconds_per_generation": search_gen_s,
+            "images_per_sec": opt.num_samples * TRANSFORM_STEPS
+            / search_gen_s,
+            "tell_min_per_generation": tell_mins,
+            "final_tell": opt.final_tell.tolist(),
+            "final_inner_loss": opt.loss.tolist(),
+            "frames_rel_gap": frame_gap,
+            "candidate": candidate.tolist(), "effective_t": effective,
+            "t_star_inverse": [1 / T_STAR[0], -T_STAR[1] / T_STAR[0],
+                               -T_STAR[2] / T_STAR[0]],
+            "launches": search_counts, "expected_launches": expect_search,
+            "syncs_in_fused_generations": in_gen,
+            "syncs_outside_generations": syncs.count(in_generation=False),
+            "peak_memory_bytes": search_peak, "resume": resume},
+        "latent": {
+            "driver": "BasinCMAOptimizer.optimize",
+            "population": opt_b.num_samples, "seconds": latent_seconds,
+            "gen_seconds": opt_b.gen_seconds,
+            "seconds_per_generation": latent_gen_s,
+            "images_per_sec": opt_b.num_samples * TRANSFORM_STEPS
+            / latent_gen_s,
+            "tell_min_per_generation": opt_b.losses,
+            "final_min_loss": final_min,
+            "out_shape": list(out.shape),
+            "collage_shape": list(outs[0].shape),
+            "launches": latent_counts, "expected_launches": expect_latent,
+            "peak_memory_bytes": latent_peak},
+        "pre_align": pre_align,
+        "seconds": time.perf_counter() - t_start}
+    emit(result)
+    assert model.generator.ch == 128 and model.generator.dtype == torch.float32
+    assert opt.num_samples == 7 and opt_b.num_samples == POP
+    assert len(tell_mins) == generations, tell_mins
+    assert all(math.isfinite(v) for v in tell_mins), tell_mins
+    assert tell_mins[-1] < tell_mins[0], (
+        f"no progress: generation 0 {tell_mins[0]}, last {tell_mins[-1]}")
+    assert frame_gap > 1e-3, ("the un-warped tell equals the warped-frame "
+                              "loss", frame_gap)
+    assert search_counts == expect_search, (search_counts, expect_search)
+    assert latent_counts == expect_latent, (latent_counts, expect_latent)
+    # one eigh sync in each generation that tells, and no other sync
+    assert in_gen == {eigh_site: generations - 1}, in_gen
+    assert resume["tell_generations_run"] == 0, resume
+    assert resume["launches"] == {"fwd": 3, "bwd": 0}, resume
+    assert resume["candidate_equal"] and resume["best_loss_equal"] \
+        and resume["cma_state_equal"], resume
+    assert len(opt_b.losses) == p2_generations
+    assert all(math.isfinite(v) for v in opt_b.losses), opt_b.losses
+    assert math.isfinite(final_min)
+    assert tuple(out.shape) == (POP, 256, 256, 3), out.shape
+    assert bool(torch.isfinite(out).all())
+    assert pre_align["ok"], pre_align
+    return search_counts, latent_counts
+
+
+def phase_transform_whole_step():
+    """One generation of the composed search (spatial + hue + brightness)
+    with injected Δt, z and c at population 2, full width, float32, on the
+    card and on the CPU: the warped targets and weights, one inner step's
+    losses and gradients, and the un-warped tell after the Adam update must
+    agree within rel 1e-3."""
+    import torch
+    from pix2latent_tpu_torch import VariableManager
+    from pix2latent_tpu_torch.core.step import ExecutionCore
+    from pix2latent_tpu_torch.examples import common
+    from pix2latent_tpu_torch.examples import \
+        invert_biggan_with_transform as ex
+
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(1)
+    z = torch.fmod(torch.randn(2, 128, generator=gen), 2.0)
+    z_target = torch.fmod(torch.randn(1, 128, generator=gen), 2.0)
+    dc = 0.1 * torch.randn(2, 128, generator=gen)
+    dt = 0.5 * torch.randn(2, 5, generator=gen)
+
+    def step(device):
+        args = ex.parser().parse_args(
+            ["--device", device, "--color_transform", "hue,brightness"])
+        model = common.load_biggan(args)
+        c = model.get_class_embedding(args.class_lbl)
+        with torch.no_grad():
+            target = model(z_target.to(device), c)[0]
+        vm = common.register_biggan_vars(VariableManager(device=device),
+                                         model, args, target,
+                                         torch.ones_like(target))
+        target_tf, weight_tf = ex.build_transforms(vm, args)
+        core = ExecutionCore(model, vm, common.make_loss(args))
+        core.register_transform(target_tf, "t", "target")
+        core.register_transform(weight_tf, "t", "weight")
+        variables = vm.initialize(2)
+        variables["input"]["z"] = z.to(device)
+        variables["input"]["c"] = c + dc.to(device)
+        variables["transform"]["t"] = (
+            target_tf.get_search_identity(as_tensor=True) + dt.to(device))
+        variables = core._dedupe_outputs(core.apply_transforms(variables))
+        warped = [variables["output"][k].detach().cpu().double()
+                  for k in ("target", "weight")]
+        ctx = core.make_ctx(variables)
+        variables, optimizer = core.init_opt_state(variables)
+        optimizer.zero_grad()
+        loss, _ = core._forward_backward(variables, ctx)
+        grads = [variables["input"][k].grad.cpu().double()
+                 for k in ("z", "c")]
+        optimizer.step()
+        tell = core.tell_loss(variables, vm.generator, 1, ctx=ctx)
+        return warped + [loss.cpu().double()] + grads + [tell.cpu().double()]
+
+    tol = 1e-3
+    t0 = time.perf_counter()
+    card, cpu = step("cuda"), step("cpu")
+    names = ["warped_target", "warped_weight", "loss", "dz", "dc", "tell"]
+    rel = {name: float((a - b).norm() / b.norm().clamp_min(1e-30))
+           for name, a, b in zip(names, card, cpu)}
+    result = {"phase": "transform_whole_step", "dtype": "float32",
+              "population": 2, "transforms": "spatial + hue + brightness",
+              "rel_err": rel, "tolerance": tol, "loss": card[2].tolist(),
+              "tell": card[5].tolist(),
+              "seconds": time.perf_counter() - t0}
+    emit(result)
+    assert all(v <= tol for v in rel.values()), rel
+    assert not torch.allclose(card[2], card[5], rtol=1e-2)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--generations", type=int, default=30)
@@ -1165,14 +1502,17 @@ def main(argv=None):
     phase_ffhq_whole_step()
     f32_counts = phase_biggan_f32_path(args.biggan_generations,
                                        args.biggan_final_steps, cases)
+    search_counts, latent_counts = phase_transform_path()
+    phase_transform_whole_step()
 
-    def timed(kernel, path, dtype="bfloat16"):   # the case at the path's shape
+    def timed(kernel, path, dtype="bfloat16", shape=FLAGSHIP):
+        """The timed case at the path's shape."""
         return next(c for c in cases if c["kernel"] == kernel
                     and c["dtype"] == dtype
                     and ("ms" in c or "fwd_ms" in c)
                     and c.get("path", "main") == path
                     and (kernel != "sagan_attention"
-                         or tuple(c["shape"]) == FLAGSHIP))
+                         or tuple(c["shape"]) == shape))
 
     kernels = []
     for kernel, path, suffix, launches, src, site in (
@@ -1180,6 +1520,12 @@ def main(argv=None):
              {"fwd": "attention.py:131", "bwd": "attention.py:154"}),
             ("sagan_attention", "biggan_f32_path", "_f32", f32_counts,
              "sagan_attention.cu",
+             {"fwd": "attention.py:131", "bwd": "attention.py:154"}),
+            ("sagan_attention", "transform_search", "_f32_transform_search",
+             search_counts, "sagan_attention.cu",
+             {"fwd": "attention.py:131", "bwd": "attention.py:154"}),
+            ("sagan_attention", "transform_latent", "_f32_transform_latent",
+             latent_counts, "sagan_attention.cu",
              {"fwd": "attention.py:131", "bwd": "attention.py:154"}),
             ("fir_blur", "main", "", {"fwd": sg2_counts["fir_blur_fwd"],
                                       "bwd": sg2_counts["fir_blur_bwd"]},
@@ -1190,8 +1536,12 @@ def main(argv=None):
               "bwd": ffhq_counts["fir_blur_bwd"]},
              "fir_blur.cu", {"fwd": "pallas_fir.py:108",
                              "bwd": "pallas_fir.py:108"})):
-        case = (timed(kernel, "main", "float32") if path == "biggan_f32_path"
-                else timed(kernel, path))
+        if path == "transform_search":          # pop 7
+            case = timed(kernel, "main", "float32", TRANSFORM_SEARCH)
+        elif path in ("biggan_f32_path", "transform_latent"):   # pop 18
+            case = timed(kernel, "main", "float32")
+        else:
+            case = timed(kernel, path)
         for key in ("fwd", "bwd"):
             extra = ({"design": case["design"]}
                      if kernel == "sagan_attention" else {})

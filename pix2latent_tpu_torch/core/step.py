@@ -36,6 +36,7 @@ from pix2latent_tpu_torch.models.base import as_model
 from pix2latent_tpu_torch.utils.checkpoint import (checkpoint_exists,
                                                    load_checkpoint,
                                                    save_checkpoint)
+from pix2latent_tpu_torch.utils.image import binarize
 from pix2latent_tpu_torch.utils.misc import cprint, to_numpy
 from pix2latent_tpu_torch.variables import (VariableManager,
                                             VariableOptimizer, Variables)
@@ -388,16 +389,34 @@ class ExecutionCore:
     def tell_loss(self, variables: Variables, generator, step=0,
                   inverted=True, ctx=None):
         """Fresh per-sample loss for the CMA tell: hooks applied to a copy,
-        then a forward without gradients. ``inverted`` names the JAX
-        package's un-warped frame, which differs only when a transform is
-        registered; that frame comes with the transforms, in a later slice
-        of the port."""
-        if inverted and self.transform_fns:
-            raise NotImplementedError(
-                "the un-warped tell frame of a registered transform is not "
-                "ported yet")
+        then a forward without gradients. With ``inverted`` and a registered
+        transform of the target (its parameter a ``transform`` variable),
+        the loss is taken in the un-warped frame (:meth:`_unwarped_loss`),
+        where ``ctx``, the context of the warped targets, does not apply."""
         with torch.no_grad():
             variables = self._dedupe_outputs(variables)
             variables = self.var_manager.apply_hooks(generator, variables, step)
-            per_sample, _ = self._eval_chunked(variables, ctx)
-        return per_sample
+            if not (inverted and self.transform_fns
+                    and "transform" in variables):
+                per_sample, _ = self._eval_chunked(variables, ctx)
+                return per_sample
+            outs = [self.model(**self._freeze(v).get("input", {}))[:real]
+                    for real, v, _ in self._chunks(variables, None)[0]]
+            return self._unwarped_loss(variables, _cat(outs))
+
+    def _unwarped_loss(self, variables: Variables, out):
+        """Per-sample loss of the images ``out`` taken back to the original
+        frame by the inverse of the target's transform, against the
+        registered (un-warped) target and, when a weight is registered, its
+        binarized default."""
+        info = self.var_manager.variable_info
+        td = self.transform_fns["target"]
+        param = td["transform_param"]
+        t = variables[info[param]["var_type"]][param]
+        out_inv = td["fn"](out, t, invert=True)
+        kwargs = {}
+        if "weight" in info and info["weight"]["default"] is not None:
+            kwargs["weight"] = binarize(info["weight"]["default"][None])
+        loss_map = self.loss_fn(out_inv, target=info["target"]["default"][None],
+                                **kwargs)
+        return loss_map.reshape(out.shape[0], -1).mean(dim=1)

@@ -45,6 +45,19 @@ def masked_l2_loss(out, target, mask):
     return (loss * mask).sum(dim=_SPATIAL_DIMS) / mask.sum(dim=_SPATIAL_DIMS)
 
 
+def invertibility_loss(ims, target_transform, transform_params, mask=None):
+    """``MSE(ims - T^-1(T(ims)))`` per sample: how much of the image a
+    transform and its inverse lose. A one-row ``ims`` is broadcast to the
+    parameters' rows."""
+    if ims.shape[0] == 1:
+        ims = ims.expand(transform_params.shape[0], *ims.shape[1:])
+    transformed = target_transform(ims, transform_params)
+    inverted = target_transform(transformed, transform_params, invert=True)
+    if mask is None:
+        return ((ims - inverted) ** 2).mean(dim=_SPATIAL_DIMS)
+    return masked_l2_loss(ims, inverted, mask)
+
+
 def _weighted_pool(loss_map, weight, loss_mask):
     """Spatially weighted per-sample mean (the loss map itself without a
     weight). A 3-channel weight is averaged onto a 1-channel map."""

@@ -12,7 +12,8 @@ What a run carries: the CMA state, the state of the optimizer's
 ``torch.Generator`` (the counterpart of the JAX package's PRNG key, a uint8
 tensor on the CPU), the meta-iteration counter, and for a segmented gradient
 run the variables and the per-variable optimizers' state
-(``VariableOptimizer.state``).
+(``VariableOptimizer.state``); for the transform search also the
+propagation means, the best loss and the best candidate.
 """
 
 from __future__ import annotations
@@ -153,7 +154,9 @@ class FusedCheckpointer:
 class LoopCheckpointer:
     """Crash-safe resume for a host ask-eval-tell meta loop: one optimizer
     attribute holding the strategy state (``cma_state``), the optimizer's
-    generator state and the meta-iteration counter.
+    generator state, the meta-iteration counter, and ``extra_attrs``, more
+    optimizer attributes whose structure stays the same through the loop
+    (the transform search's propagation means and best candidate).
 
     Usage::
 
@@ -164,16 +167,19 @@ class LoopCheckpointer:
             ckpt.save(i + 1)             # no-op unless (i + 1) % every == 0
     """
 
-    def __init__(self, path, optimizer, state_attr: str, every: int = 1):
+    def __init__(self, path, optimizer, state_attr: str, every: int = 1,
+                 extra_attrs: tuple = ()):
         self.path = path
         self.opt = optimizer
         self.state_attr = state_attr
         self.every = max(int(every), 1)
+        self.extra_attrs = tuple(extra_attrs)
 
     def _carry(self, meta_iter: int):
         return {"state": getattr(self.opt, self.state_attr),
                 "generator": self.opt.generator.get_state(),
-                "meta_iter": np.int32(meta_iter)}
+                "meta_iter": np.int32(meta_iter),
+                "extra": {a: getattr(self.opt, a) for a in self.extra_attrs}}
 
     def resume(self) -> int:
         if not checkpoint_exists(self.path):
@@ -183,6 +189,8 @@ class LoopCheckpointer:
         carry = load_checkpoint(self.path, like)
         setattr(self.opt, self.state_attr, carry["state"])
         self.opt.generator.set_state(carry["generator"])
+        for a in self.extra_attrs:
+            setattr(self.opt, a, carry["extra"][a])
         start = int(carry["meta_iter"])
         cprint(f"(checkpoint) resumed at generation {start}", "y")
         return start

@@ -159,7 +159,9 @@ def test_port_imports_nothing_of_jax():
     assert {f"pix2latent_tpu_torch/{m}.py" for m in (
         "ops/upfirdn2d", "ops/fir_blur", "ops/mod_backward",
         "models/stylegan2", "optimizers/gradient", "optimizers/cma_optimizer",
-        "utils/params_io", "utils/flagship", "core/step")} <= names
+        "utils/params_io", "utils/flagship", "core/step",
+        "transform/spatial", "transform/transform_optimizer",
+        "ops/affine_matmul", "ops/grid_sample")} <= names
     for f in files:
         assert not _FORBIDDEN.search(f.read_text()), f
     probe = ("import sys, pkgutil, importlib, pix2latent_tpu_torch as p\n"

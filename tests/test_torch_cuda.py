@@ -17,8 +17,11 @@ tensor-core kernels) is also held at every head width it takes, on peaked
 logits that pin the masking of padded keys, for bitwise repeatability, and
 for the precision of its dS products against a float64 computation; its
 float32 route (3xTF32) at every head width, at the BigGAN and ragged
-shapes, for bitwise repeatability and for NaN propagation, and both
-routes' work counts against the source note.
+shapes, for bitwise repeatability (five calls in a row at the transform
+search's population 7) and for NaN propagation, and both
+routes' work counts against the source note. The transform search's warps
+(the two-product warp, its inverse and ``grid_sample``) and its un-warped
+tell are held against the CPU.
 
 Every test here is marked ``cuda`` and skips without an NVIDIA GPU. The file
 imports neither JAX nor the JAX package, so it also runs where JAX is not
@@ -217,6 +220,25 @@ def test_f32_kernel_is_deterministic(cuda, shape):
     for a, b, name in zip(first, second, ("out", "dtheta", "dphi", "dg")):
         assert torch.equal(a, b), name
 
+
+
+def test_f32_search_population_repeats_within_tolerance(cuda):
+    # the transform search's shape, pop 7: five forward + backward calls in
+    # a row, the first within tolerance of the plain version, every one
+    # bitwise equal to it
+    names = ("out", "dtheta", "dphi", "dg")
+    inputs = _inputs((7, 4096, 1024, 64, 256), torch.float32, cuda)
+    want = _fwd_bwd(A.sagan_attention_reference, inputs)
+    first = _fwd_bwd(A.sagan_attention, inputs)
+    tol_o, tol_g = TOL[torch.float32]
+    for a, b, name, tol in zip(first, want, names, (tol_o,) + (tol_g,) * 3):
+        assert bool(torch.isfinite(a).all()), name
+        torch.testing.assert_close(a, b, rtol=tol, atol=tol, msg=name)
+    for _ in range(4):
+        again = _fwd_bwd(A.sagan_attention, inputs)
+        torch.cuda.synchronize()
+        for a, b, name in zip(first, again, names):
+            assert torch.equal(a, b), name
 
 def test_f32_nan_input_stays_nan(cuda):
     # CUDA's own NaN (0x7fffffff) carries out of the tf32 rounding's add:
@@ -568,3 +590,74 @@ def test_remat_around_the_attention_kernel(cuda):
         grads.append([t.grad for t in ins])
     for a, b in zip(*grads):
         assert torch.equal(a, b)
+
+
+# --------------------------------------------------------------------- #
+# the transform search's warp and un-warped tell                          #
+# --------------------------------------------------------------------- #
+
+def _tell_problem(device):
+    from pix2latent_tpu_torch import VariableManager
+    from pix2latent_tpu_torch import loss_functions as LF
+    from pix2latent_tpu_torch.core.step import ExecutionCore
+    from pix2latent_tpu_torch.models.toy import make_toy_model
+    from pix2latent_tpu_torch.transform import SpatialOnly, setup_transform_fn
+
+    rng = np.random.RandomState(5)
+    model = make_toy_model(z_dim=8, res=64, width=16, seed=0, device=device)
+    vm = VariableManager(seed=0, device=device)
+    vm.register("z", shape=(8,), var_type="input")
+    vm.register("target", shape=(64, 64, 3), var_type="output",
+                requires_grad=False,
+                default=rng.uniform(-1, 1, (64, 64, 3)).astype(np.float32))
+    vm.register("weight", shape=(64, 64, 3), var_type="output",
+                requires_grad=False,
+                default=(rng.rand(64, 64, 3) > 0.2).astype(np.float32))
+    vm.register("t", shape=(5,), var_type="transform", requires_grad=False,
+                default=np.zeros(5, np.float32))
+    fn, _ = setup_transform_fn(spatial_transform=True,
+                               color_transform=("hue", "brightness"),
+                               device=device)
+    core = ExecutionCore(model, vm, lambda out, target, weight:
+                         LF.masked_l1_loss(out, target, weight),
+                         max_batch_size=3)
+    core.register_transform(fn, "t", "target")
+    core.register_transform(SpatialOnly(fn), "t", "weight")
+    variables = vm.initialize(7)
+    variables["input"]["z"] = torch.tensor(
+        rng.randn(7, 8).astype(np.float32), device=device)
+    variables["transform"]["t"] = torch.tensor(
+        (rng.randn(7, 5) + [0, 0, 0, 0, 1]).astype(np.float32), device=device)
+    return core, variables
+
+
+def test_transform_warp_and_unwarped_tell_match_the_cpu(cuda):
+    from pix2latent_tpu_torch.ops import affine_matmul as AM
+    from pix2latent_tpu_torch.ops import grid_sample as GS
+
+    rng = np.random.RandomState(4)
+    im = rng.uniform(-1, 1, (7, 256, 256, 3)).astype(np.float32)
+    t = np.stack([rng.uniform(0.8, 1.25, 7), rng.uniform(-0.3, 0.3, 7),
+                  rng.uniform(-0.3, 0.3, 7)], 1).astype(np.float32)
+    theta = np.zeros((7, 2, 3), np.float32)
+    theta[:, 0, 0] = theta[:, 1, 1] = t[:, 0]
+    theta[:, :, 2] = t[:, 1:]
+    for fn, arg in ((AM.affine_warp_matmul_t, t),
+                    (AM.inverse_affine_warp_matmul_t, t),
+                    (GS.affine_warp, theta)):
+        want = fn(torch.tensor(im), torch.tensor(arg))
+        got = fn(torch.tensor(im, device=cuda), torch.tensor(arg, device=cuda))
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+
+    losses = []
+    for device in ("cpu", cuda):
+        core, variables = _tell_problem(device)
+        gen = torch.Generator(device=device).manual_seed(0)
+        warped = core._dedupe_outputs(core.apply_transforms(variables))
+        assert warped["output"]["target"].shape == (7, 64, 64, 3)
+        losses.append([core.tell_loss(warped, gen, 0).cpu(),
+                       core.tell_loss(warped, gen, 0, inverted=False).cpu()])
+    (tell_cpu, warped_cpu), (tell, warped_loss) = losses
+    torch.testing.assert_close(tell, tell_cpu, rtol=1e-4, atol=1e-6)
+    torch.testing.assert_close(warped_loss, warped_cpu, rtol=1e-4, atol=1e-6)
+    assert not torch.allclose(tell, warped_loss, rtol=0.05)

@@ -10,7 +10,13 @@ The BigGAN BasinCMA entry point
 JAX example's flags plus ``--device``, the same variable registration as
 the JAX package's ``register_biggan_vars``, and a run on the CPU at a tiny
 size (the BigGAN-deep-256 wrapper with the 128 px layout and 4 channels a
-layer), through both drivers, resumed from its checkpoint."""
+layer), through both drivers, resumed from its checkpoint.
+
+The BigGAN entry point with the transform search
+(``pix2latent_tpu_torch/examples/invert_biggan_with_transform.py``): the JAX
+example's flags plus ``--device`` and its schedules, both phases on the CPU
+at the same tiny size for each ``--method``, with and without ``--fused``
+and ``--color_transform``, and the mask's pre-alignment through the API."""
 
 import argparse
 import importlib.util
@@ -27,6 +33,8 @@ import torch
 from pix2latent_tpu_torch import VariableManager
 from pix2latent_tpu_torch.examples import common
 from pix2latent_tpu_torch.examples import invert_biggan_basincma as bg
+from pix2latent_tpu_torch.examples import \
+    invert_biggan_with_transform as tf_ex
 from pix2latent_tpu_torch.examples import \
     invert_stylegan2_ffhq_basincma as ffhq
 from pix2latent_tpu_torch.models import biggan as B
@@ -262,3 +270,77 @@ def test_biggan_checkpoint_other_than_npz_is_not_ported_yet(tiny_biggan,
 def test_biggan_codec_options_are_not_ported_yet(flag):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         bg.main(["--device", "cpu", "--smoke", flag])
+
+
+# --------------------------------------------------------------------- #
+# BigGAN with the transform search                                        #
+# --------------------------------------------------------------------- #
+
+def test_transform_flags_and_schedules_are_the_jax_examples():
+    src = (ROOT / "examples" / "invert_biggan_with_transform.py").read_text()
+    own = set(re.findall(r'add_argument\(\s*"--(\w+)"', src))
+    assert own == {"method", "color_transform", "fused"}
+    want = _flags(_jax_common().base_parser("")) | own
+    assert _flags(tf_ex.parser()) == want | {"device"}
+    full = {m: tf_ex.schedule(argparse.Namespace(smoke=False, method=m))
+            for m in ("adam", "cma", "basincma")}
+    smoke = {m: tf_ex.schedule(argparse.Namespace(smoke=True, method=m))
+             for m in ("adam", "cma", "basincma")}
+    assert full == {"adam": ((50, 10), (500,)), "cma": ((50, 10), (200, 300)),
+                    "basincma": ((50, 10), (30, 30, 300))}
+    assert smoke == {"adam": ((3, 4), (20,)), "cma": ((3, 4), (3, 10)),
+                     "basincma": ((3, 4), (2, 4, 8))}
+
+
+@pytest.mark.parametrize("method,extra", [
+    ("adam", []), ("cma", ["--fused"]),
+    ("basincma", ["--color_transform", "hue,brightness"]),
+    ("basincma", ["--fused", "--color_transform", "hue,brightness"])])
+def test_transform_example_runs_both_phases(tiny_biggan, tmp_path, capsys,
+                                            method, extra):
+    tf_ex.main(["--device", "cpu", "--smoke", "--method", method,
+                "--save_dir", str(tmp_path)] + extra)
+    out = capsys.readouterr().out
+    assert "best transform:" in out
+    result = dict(np.load(tmp_path / "result.npz"))
+    pop = {"adam": 9, "cma": 18, "basincma": 18}[method]
+    t = result["variables/transform/t"]
+    assert t.shape == (pop, 5 if extra[-1:] == ["hue,brightness"] else 3)
+    # phase 2 runs with the frozen candidate in every row
+    np.testing.assert_array_equal(t, np.broadcast_to(t[0], t.shape))
+    assert result["variables/output/target"].shape == (pop, 128, 128, 3)
+    assert result["variables/input/z"].shape == (pop, 128)
+    assert np.isfinite(result["loss"]).all()
+    steps = {"adam": 20, "cma": 3 + 10, "basincma": 2 * 4 + 8}[method]
+    assert result["loss_step"] == steps
+    if method != "adam":
+        assert result["tell_min"].shape == ({"cma": 3, "basincma": 2}[method],)
+        assert np.isfinite(result["tell_min"]).all()
+
+
+def test_transform_example_mask_option_is_not_ported_yet():
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        tf_ex.main(["--device", "cpu", "--smoke", "--mask_fp=m.png"])
+
+
+def test_transform_example_needs_a_device_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tf_ex.main(["--smoke"])
+
+
+def test_transform_example_pre_aligns_to_a_mask():
+    # --mask_fp needs the codecs; its alignment is reached through the API
+    from pix2latent_tpu.transform.utils import compute_pre_alignment
+    mask = np.zeros((64, 64, 3), np.float32)
+    mask[10:40, 20:60] = 1.0
+    for colors in ("", "hue"):
+        vm = VariableManager(device="cpu")
+        args = argparse.Namespace(color_transform=colors, device="cpu")
+        target_tf, weight_tf = tf_ex.build_transforms(vm, args, mask=mask)
+        spatial = (target_tf.transform_list[0][0] if colors else target_tf)
+        np.testing.assert_allclose(spatial.t,
+                                   np.asarray(compute_pre_alignment(mask)),
+                                   rtol=1e-6)
+        assert vm.variable_info["t"]["var_type"] == "transform"
+        assert vm.variable_info["t"]["shape"] == ((4,) if colors else (3,))
