@@ -76,9 +76,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 4. ``main_path``: BasinCMA inversion of the ``bench.py`` ramp target through
    BigGAN-deep-256 at full width (channel width 128) in bfloat16, under
    ProjectionLoss (masked L1 + 10 x LPIPS-alex), population 18, 30 inner
-   Adam steps per generation, random weights from a seed; by default the
-   flagship's full 30 generations and 300 final steps (a shorter schedule
-   from the flags is printed as ``shortened``; ``sg2_path`` likewise). The launch
+   Adam steps per generation, random weights from a seed; by default 20 of
+   the flagship's 30 generations and 100 of its 300 final steps (printed as
+   ``shortened``, as any schedule from the flags; ``sg2_path``: 10 + 100), so
+   that the script stays within about half its time limit. The launch
    counters are set to 0 just before and read just after; they must equal
    one forward per inner step and per tell, one backward per inner step.
 5. ``whole_step``: one float32 forward and backward of generator + loss at
@@ -150,14 +151,51 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    full width, float32, on the card against the CPU: the warped targets
    and weights, one inner step's losses and gradients, and the un-warped
    tell after the Adam update, each within rel 1e-3.
+13. ``real_input_path``: the BigGAN entry point on files, float32, full
+   width. A ``pytorch_pretrained_biggan`` state dict of the seed-0 model's
+   weights is made here with numpy (HF's names, every generator conv and
+   linear under spectral norm as ``weight_orig`` / ``weight_u``, sigma a
+   known factor in [0.9, 1.1]), saved with ``torch.save``, converted by
+   ``python -m pix2latent_tpu_torch.scripts.convert``'s ``main``, and
+   ``BigGAN`` loaded from both files: the two must be bitwise equal and
+   the baked weights the known ones within rel 1e-5. A rendered target and
+   a box mask are written as PNG by ``utils/image.save`` and read back
+   bitwise. Then ``examples/invert_biggan_basincma.main`` with ``--fp
+   --mask_fp --checkpoint <.npz> --fused`` at ``biggan_f32_path``'s 3 + 30
+   schedule: finite tell losses, the final below the first, exact K1 f32
+   counts, one ``eigh`` sync in each generation, ``out.jpg``, ``best.jpg``
+   and ``result.npz`` written; the best sample re-rendered and
+   ``poisson_blend``-ed into the target: uint8 of the target's shape, equal
+   to the native solver's output (so the native solver ran), equal to the
+   target outside the mask. ``--make_video`` is left out (it needs cv2 or
+   imageio; tier-1 runs it).
+14. ``batched_path``: ``examples/invert_biggan_batched.main``, bfloat16,
+   full width, on 4 PNG self-targets of 4 classes (``--fps``), population
+   18 each (72 rows) in chunks of 36 (``--max_batch_size``, so K1 bf16 at
+   n = 36), 3 generations of 30 inner steps and 30 final steps: each
+   image's loss curve finite and its final loss below its generation-0
+   minimum, exact K1 bf16 counts, one ``eigh`` sync a generation for the
+   four images; images/s (M x pop x 30 / mean seconds a generation, the
+   first excluded) beside ``main_path``'s, seconds a generation, peak.
+15. ``transform_batched_path``: ``examples/invert_biggan_transform_batched
+   .main --smoke`` on 2 shifted PNG self-targets, bfloat16, full width: the
+   batched search 3 x 3 at population 7 (14 rows), then the batched
+   inversion with un-warped tells 2 x 3 + 5 at population 18 (36 rows):
+   exact K1 counts for each phase, finite losses, each search's last best
+   tell below its first.
 
 Then a ``done`` line with the script's seconds, the ``{"kernels": [...]}``
 line (each K2 and K3 entry twice: at the cars path's shapes with
 ``sg2_path``'s launches, and, ``_ffhq``, at the FFHQ path's with
 ``ffhq_path``'s; K1 four times: bfloat16 with ``main_path``'s launches,
 ``_f32``, float32 with ``biggan_f32_path``'s, ``_f32_transform_search`` at
-population 7 with the transform search's and ``_f32_transform_latent`` with
-the latent search's), the card's ``nvidia-smi`` line and the result line.
+population 7 with the transform search's, ``_f32_transform_latent`` with
+the latent search's and ``_f32_real_input`` with ``real_input_path``'s;
+bfloat16 ``_batched`` at [36, 4096, 1024, 64, 256] with ``batched_path``'s,
+``_transform_batched_search`` at [14, ...] and
+``_transform_batched_latent`` at [36, ...] with
+``transform_batched_path``'s), the card's ``nvidia-smi`` line and the
+result line.
 It exits non-zero, printing no result, without a CUDA device or without the
 package beside it.
 """
@@ -217,6 +255,13 @@ T_STAR = (1.1, 0.25, -0.15)
 TRANSFORM_STEPS = 10
 TRANSFORM_SEARCH_GENS = 5
 TRANSFORM_LATENT = (2, 30)        # generations, final Adam steps
+# the batched entry point: 4 images of 4 classes at population 18 (72 rows)
+# in chunks of 36, 3 of its 30 generations and 30 of its 300 final steps
+BATCHED_M, BATCHED_MBS = 4, 36
+BATCHED_LABELS = (153, 254, 1, 417)
+BATCHED_SCHEDULE = (3, GRAD_STEPS, 30)
+BATCHED = (BATCHED_MBS, 4096, 1024, 64, 256)    # K1 at a 36-row chunk
+TRANSFORM_BATCHED_SEARCH = (14, 4096, 1024, 64, 256)   # 2 searches x pop 7
 
 
 def emit(obj):
@@ -690,6 +735,10 @@ def phase_kernels():
         cases.append(_attention_case(BIGGAN128, dtype, timed=True))
         if dtype == torch.float32:
             cases.append(_attention_case(TRANSFORM_SEARCH, dtype, timed=True))
+        else:
+            cases.append(_attention_case(BATCHED, dtype, timed=True))
+            cases.append(_attention_case(TRANSFORM_BATCHED_SEARCH, dtype,
+                                         timed=True))
         torch.cuda.empty_cache()
         cases.append(_fir_case(*FIR_PATH, dtype, timed=True))
         cases.append(_fir_case(*FIR_RAGGED, dtype, timed=False))
@@ -767,7 +816,7 @@ def phase_main_path(generations, final_steps):
         f"no convergence: first generation {tell_mins[0]}, final {final_min}")
     assert counts == expect, (counts, expect)
     assert counts["fwd"] > 0 and counts["bwd"] > 0
-    return counts
+    return counts, result["images_per_sec"]
 
 
 def _whole_step(phase, builder, inputs):
@@ -917,8 +966,8 @@ def _sync_site():
     """Where a host sync was asked for: the innermost frame in this
     repository's package, as ``file:line``; the innermost frame of all,
     with its source line; and whether it was inside a fused generation
-    (the ``generation`` of ``optimizers/cma_base.py`` or of
-    ``transform/transform_optimizer.py``)."""
+    (the ``generation`` of ``optimizers/cma_base.py``,
+    ``optimizers/batched.py`` or ``transform/transform_optimizer.py``)."""
     import linecache
     import traceback
 
@@ -929,12 +978,23 @@ def _sync_site():
     last = stack[-1]
     in_generation = any(
         f.name == "generation"
-        and f.filename.endswith(("cma_base.py", "transform_optimizer.py"))
+        and f.filename.endswith(("cma_base.py", "transform_optimizer.py",
+                                 "batched.py"))
         for f in ours)
     return (f"{Path(site.filename).name}:{site.lineno}",
             f"{last.filename}:{last.lineno}: "
             f"{linecache.getline(last.filename, last.lineno).strip()}",
             in_generation)
+
+
+def _eigh_site():
+    """``cma.py:<line>`` of the CMA tell's ``eigh``, the one host sync a
+    fused generation may make."""
+    from pix2latent_tpu_torch.strategies import cma
+    return "cma.py:{}".format(next(
+        i + 1 for i, line in enumerate(
+            Path(cma.__file__).read_text().splitlines())
+        if "torch.linalg.eigh(C)" in line))
 
 
 class _RecordSyncs:
@@ -978,7 +1038,6 @@ def phase_ffhq_path(generations, final_steps):
     from pix2latent_tpu_torch.ops import fir_blur as FB
     from pix2latent_tpu_torch.ops import mod_backward as MB
     from pix2latent_tpu_torch.optimizers import BasinCMAOptimizer
-    from pix2latent_tpu_torch.strategies import cma
     from pix2latent_tpu_torch.utils.flagship import FFHQ_RECIPE, build_ffhq
 
     def make_opt():
@@ -1033,10 +1092,7 @@ def phase_ffhq_path(generations, final_steps):
     expect = ffhq_expected_launches(generations, final_steps, chunks)
     g = model.generator
     sync_sites = syncs.count(in_generation=True)
-    eigh_site = "cma.py:{}".format(next(
-        i + 1 for i, line in enumerate(
-            Path(cma.__file__).read_text().splitlines())
-        if "torch.linalg.eigh(C)" in line))
+    eigh_site = _eigh_site()
     result = {
         "phase": "ffhq_path", "model": "stylegan2-ffhq-1024",
         "channel_multiplier": 2, "w_layers": g.num_layers + 1,
@@ -1224,7 +1280,6 @@ def phase_transform_path():
         invert_biggan_with_transform as ex
     from pix2latent_tpu_torch.ops import attention as A
     from pix2latent_tpu_torch.optimizers import BasinCMAOptimizer
-    from pix2latent_tpu_torch.strategies import cma
     from pix2latent_tpu_torch.transform import (SpatialTransform,
                                                 TransformBasinCMAOptimizer)
 
@@ -1290,10 +1345,7 @@ def phase_transform_path():
     tell_mins = opt.losses
     steady = opt.gen_seconds[1:] or opt.gen_seconds
     search_gen_s = statistics.mean(steady)
-    eigh_site = "cma.py:{}".format(next(
-        i + 1 for i, line in enumerate(
-            Path(cma.__file__).read_text().splitlines())
-        if "torch.linalg.eigh(C)" in line))
+    eigh_site = _eigh_site()
     in_gen = syncs.count(in_generation=True)
     frame_gap = float(np.abs(opt.final_tell - opt.loss).max()
                       / max(np.abs(opt.loss).max(), 1e-30))
@@ -1460,12 +1512,454 @@ def phase_transform_whole_step():
     assert not torch.allclose(card[2], card[5], rtol=1e-2)
 
 
+def _hf_biggan_state_dict(model, seed):
+    """The weights of the port's ``model`` (a BigGAN-deep) as a
+    ``pytorch_pretrained_biggan`` state dict, made here with numpy: HF's
+    names (blocks and the attention layer in ``generator.layers.<i>``,
+    ``generator.bn``, ``embeddings.weight``), every generator conv and
+    linear under spectral norm as ``weight_orig`` and ``weight_u``. Each
+    ``u`` is the direction of ``W W^T``'s top eigenvector from one power
+    step on a random vector, scaled so that the converter's baked sigma is
+    a factor ``s`` in [0.9, 1.1]: the baked weight is ``weight_orig / s``.
+    Returns ``(state dict, {port name: s})``."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed)
+    attn = model.generator.attn_pos
+    sd, scales = {}, {}
+    for name, p in model.state_dict().items():
+        w = p.detach().cpu().numpy().astype(np.float32)
+        parts = name.split(".")
+        if parts[0] == "embeddings":
+            sd["embeddings.weight"] = torch.tensor(w)
+            continue
+        head = parts[1]
+        if head.startswith("block_"):
+            i = int(head.split("_")[1])
+            key = ".".join([f"generator.layers.{i + (i >= attn)}",
+                            *parts[2:]])
+        elif head.startswith("attn_"):
+            conv = {"theta": "snconv1x1_theta", "phi": "snconv1x1_phi",
+                    "g": "snconv1x1_g", "o_conv": "snconv1x1_o_conv"}
+            rest = [conv.get(parts[2], parts[2]), *parts[3:]]
+            key = ".".join([f"generator.layers.{attn}", *rest])
+        elif head == "bn_out":
+            key = ".".join(["generator.bn", *parts[2:]])
+        else:
+            key = name
+        if key.endswith(".weight") and w.ndim >= 2:
+            s = rng.uniform(0.9, 1.1)
+            w_mat = w.reshape(w.shape[0], -1)
+            u = w_mat @ (w_mat.T @ rng.randn(w.shape[0]).astype(np.float32))
+            # the converter's sigma is ||W^T u||: make it s
+            u = u * (s / np.linalg.norm(w_mat.T @ u))
+            sd[key[:-len("weight")] + "weight_orig"] = torch.tensor(w)
+            sd[key[:-len("weight")] + "weight_u"] = torch.tensor(
+                u.astype(np.float32))
+            scales[name] = s
+        else:
+            sd[key] = torch.tensor(w)
+    return sd, scales
+
+
+def phase_real_input_path(generations, final_steps):
+    """The BigGAN entry point on files it reads, in float32; see the module
+    docstring."""
+    import math
+    import tempfile
+
+    import numpy as np
+    import torch
+    from pix2latent_tpu_torch import native
+    from pix2latent_tpu_torch.examples import \
+        invert_biggan_basincma as ex
+    from pix2latent_tpu_torch.models.biggan import BigGAN
+    from pix2latent_tpu_torch.ops import attention as A
+    from pix2latent_tpu_torch.scripts import convert
+    from pix2latent_tpu_torch.utils import image, png
+
+    t_start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # the weights: a torch checkpoint of the full-width model, converted
+        # by the CLI, loaded from both files
+        import warnings
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            ref = BigGAN("biggan-deep-256", seed=0, device="cpu")
+        sd, scales = _hf_biggan_state_dict(ref, seed=1)
+        torch.save(sd, tmp / "biggan.pth")
+        del sd
+        t0 = time.perf_counter()
+        report = convert.main(["biggan", str(tmp / "biggan.pth"),
+                               str(tmp / "biggan.npz")])
+        convert_s = time.perf_counter() - t0
+        from_pth = BigGAN("biggan-deep-256",
+                          pretrained_path=str(tmp / "biggan.pth"),
+                          device="cpu").state_dict()
+        model = BigGAN("biggan-deep-256",
+                       pretrained_path=str(tmp / "biggan.npz"),
+                       device="cuda")
+        loaded = {k: v.cpu() for k, v in model.state_dict().items()}
+        same = all(torch.equal(from_pth[k], loaded[k]) for k in from_pth)
+        baked_err = max(
+            float(((loaded[k] - v.detach() / scales[k]).abs().max()
+                   / v.detach().abs().max()))
+            for k, v in ref.state_dict().items() if k in scales)
+        del from_pth, ref
+
+        # the target and a box mask as PNG files, read back
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        with torch.no_grad():
+            z = torch.randn((1, 128), generator=gen, device="cuda")
+            rendered = model(z, model.get_class_embedding(153))[0]
+        target_u8 = image.to_image(rendered)
+        mask_u8 = np.zeros((256, 256), np.uint8)
+        mask_u8[64:192, 48:208] = 255
+        fp, mask_fp = str(tmp / "target.png"), str(tmp / "mask.png")
+        image.save(fp, target_u8)
+        image.save(mask_fp, mask_u8)
+        png_equal = (np.array_equal(png.read_png(fp), target_u8)
+                     and np.array_equal(png.read_png(mask_fp), mask_u8))
+        read_back = image.read(fp, device="cuda")
+        read_equal = bool(torch.equal(read_back, torch.as_tensor(
+            2.0 * (target_u8.astype(np.float32) / 255.0) - 1.0,
+            device="cuda")))
+
+        # the entry point, on the files, at a shortened schedule
+        save = tmp / "run"
+        full = ex.schedule(argparse.Namespace(smoke=False))
+        ex_schedule, ex_driver = ex.schedule, ex.BasinCMAOptimizer
+        ex.schedule = lambda args: (generations, GRAD_STEPS, final_steps)
+        drivers = []
+
+        class Recorded(ex_driver):
+            def __init__(self, *a, **k):
+                super().__init__(*a, **k)
+                drivers.append(self)
+        ex.BasinCMAOptimizer = Recorded
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            A.reset_launch_counts()
+            t0 = time.perf_counter()
+            with _RecordSyncs() as syncs:
+                ex.main(["--fp", fp, "--mask_fp", mask_fp, "--checkpoint",
+                         str(tmp / "biggan.npz"), "--fused", "--save_dir",
+                         str(save), "--device", "cuda"])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = A.launch_counts()
+            peak = torch.cuda.max_memory_allocated()
+        finally:
+            ex.schedule, ex.BasinCMAOptimizer = ex_schedule, ex_driver
+        result = dict(np.load(save / "result.npz"))
+        written = sorted(p.name for p in save.iterdir())
+
+        # the best sample re-rendered, blended into the target by the
+        # native solver
+        best = int(np.argmin(result["loss"]))
+        with torch.no_grad():
+            out = model(torch.as_tensor(result["variables/input/z"][best:best + 1],
+                                        device="cuda"),
+                        torch.as_tensor(result["variables/input/c"][best:best + 1],
+                                        device="cuda"))[0]
+        # the target as 0..255 floats (its exact pixels), the output in
+        # [0, 1], the mask in [0, 1]
+        out01 = (out.float().cpu().numpy() + 1.0) / 2.0
+        blended = image.poisson_blend(target_u8.astype(np.float32),
+                                      mask_u8.astype(np.float32) / 255.0,
+                                      out01)
+        # the solver called directly: the box's center (127, 127) of rows
+        # 64..191 and columns 48..207
+        direct = native.seamless_clone(
+            (out01 * 255.0).astype(np.uint8), target_u8, mask_u8,
+            (127, 127))
+        outside = mask_u8 == 0
+        blend = {"shape": list(blended.shape), "dtype": str(blended.dtype),
+                 "native_library": native.library_path().name,
+                 "equals_native_solver": bool(np.array_equal(blended,
+                                                             direct)),
+                 "outside_mask_equals_target": bool(np.array_equal(
+                     blended[outside], target_u8[outside])),
+                 "inside_mask_changed": int((blended[~outside]
+                                             != target_u8[~outside]).sum())}
+
+    tell_mins = [float(v) for v in result["tell_min"]]
+    final_min = float(result["loss"].min())
+    gen_seconds = drivers[0].gen_seconds
+    gen_s = statistics.mean(gen_seconds[1:] or gen_seconds)
+    expect = {"fwd": generations * (GRAD_STEPS + 1) + final_steps,
+              "bwd": generations * GRAD_STEPS + final_steps}
+    eigh_site = _eigh_site()
+    in_gen = syncs.count(in_generation=True)
+    res = {
+        "phase": "real_input_path", "model": "biggan-deep-256",
+        "entry_point": "pix2latent_tpu_torch/examples/invert_biggan_basincma.py",
+        "channel_width": model.generator.ch, "dtype": "float32",
+        "population": POP, "grad_steps": GRAD_STEPS,
+        "generations": generations, "final_steps": final_steps,
+        "shortened": (f"{generations} of {full[0]} generations, "
+                      f"{final_steps} of {full[2]} final Adam steps"),
+        "checkpoint": {"arrays": len(report), "convert_seconds": convert_s,
+                       "pth_equals_npz": same,
+                       "baked_rel_err": baked_err},
+        "png_round_trip": png_equal, "read_equals_png": read_equal,
+        "seconds": seconds, "gen_seconds": gen_seconds,
+        "seconds_per_generation": gen_s,
+        "images_per_sec": POP * GRAD_STEPS / gen_s,
+        "peak_memory_bytes": peak,
+        "tell_min_per_generation": tell_mins, "final_min_loss": final_min,
+        "written": written, "attention_launches": counts,
+        "expected_launches": expect,
+        "syncs_in_fused_generations": in_gen,
+        "make_video": "left out here: it needs cv2 or imageio; tier-1 "
+                      "runs it (tests/test_torch_example_inputs.py)",
+        "poisson_blend": blend,
+        "phase_seconds": time.perf_counter() - t_start}
+    emit(res)
+    assert model.generator.ch == 128
+    assert same, "the .pth and the converted .npz load different weights"
+    assert baked_err < 1e-5, baked_err
+    assert png_equal and read_equal
+    assert len(tell_mins) == generations
+    assert all(math.isfinite(v) for v in tell_mins), tell_mins
+    assert math.isfinite(final_min) and final_min < tell_mins[0], (
+        f"no convergence: first generation {tell_mins[0]}, final {final_min}")
+    assert counts == expect, (counts, expect)
+    assert in_gen == {eigh_site: generations}, in_gen
+    assert {"out.jpg", "best.jpg", "result.npz"} <= set(written), written
+    assert blend["shape"] == [256, 256, 3] and blend["dtype"] == "uint8"
+    assert blend["equals_native_solver"], blend
+    assert blend["outside_mask_equals_target"], blend
+    assert blend["inside_mask_changed"] > 0, blend
+    return counts
+
+
+def _self_targets(m, labels, shifts=None):
+    """``m`` images of the bf16 BigGAN-deep-256 of seed 0 (the batched
+    examples' model), one a class label, optionally shifted (``t = [1,
+    shift, 0.05]``), as uint8."""
+    import warnings
+
+    import torch
+    from pix2latent_tpu_torch.models.biggan import BigGAN
+    from pix2latent_tpu_torch.transform import SpatialTransform
+    from pix2latent_tpu_torch.utils import image
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        model = BigGAN("biggan-deep-256", dtype=torch.bfloat16, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    c = torch.cat([model.get_class_embedding(lbl) for lbl in labels])
+    with torch.no_grad():
+        ims = model(torch.randn((m, 128), generator=gen, device="cuda"),
+                    c).float()
+        if shifts is not None:
+            warp = SpatialTransform(sensitivity=1.0, device="cuda")
+            ims = torch.cat([warp.transform(ims[i:i + 1], torch.tensor(
+                [[1.0, float(s), 0.05]], device="cuda"))
+                for i, s in enumerate(shifts)])
+    out = [image.to_image(ims[i]) for i in range(m)]
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_batched_path(main_images_per_sec):
+    """``examples/invert_biggan_batched.py`` on PNG files; see the module
+    docstring."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from pix2latent_tpu_torch.examples import invert_biggan_batched as ex
+    from pix2latent_tpu_torch.ops import attention as A
+    from pix2latent_tpu_torch.utils import image
+
+    m, (generations, steps, final_steps) = BATCHED_M, BATCHED_SCHEDULE
+    labels = BATCHED_LABELS
+    t_start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        fps = []
+        for i, im in enumerate(_self_targets(m, labels)):
+            fps.append(str(Path(tmp) / f"target_{i}.png"))
+            image.save(fps[-1], im)
+        full = ex.schedule(argparse.Namespace(smoke=False))
+        ex_schedule = ex.schedule
+        ex.schedule = lambda args: BATCHED_SCHEDULE
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            A.reset_launch_counts()
+            t0 = time.perf_counter()
+            with _RecordSyncs() as syncs:
+                run = ex.main(["--fps", *fps, "--class_lbls",
+                               *map(str, labels), "--max_batch_size",
+                               str(BATCHED_MBS), "--save_dir",
+                               str(Path(tmp) / "out"), "--device", "cuda"])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = A.launch_counts()
+            peak = torch.cuda.max_memory_allocated()
+        finally:
+            ex.schedule = ex_schedule
+        written = sorted(p.name for p in (Path(tmp) / "out").iterdir())
+
+    res, opt = run["result"], run["optimizer"]
+    pop = opt.popsize
+    curves = res["loss_curves"]
+    final = res["loss"].float().cpu().numpy()
+    steady = opt.gen_seconds[1:] or opt.gen_seconds
+    gen_s = statistics.mean(steady)
+    chunks = -(-m * pop // BATCHED_MBS)
+    expect = {"fwd": generations * chunks * (steps + 1)
+              + chunks * (final_steps + 1) + 1,
+              "bwd": generations * chunks * steps + chunks * final_steps}
+    eigh_site = _eigh_site()
+    in_gen = syncs.count(in_generation=True)
+    images_per_sec = m * pop * steps / gen_s
+    result = {
+        "phase": "batched_path", "model": "biggan-deep-256",
+        "entry_point": "pix2latent_tpu_torch/examples/invert_biggan_batched.py",
+        "channel_width": 128, "dtype": "bfloat16", "images": m,
+        "class_labels": list(labels), "population": pop,
+        "rows": m * pop, "max_batch_size": BATCHED_MBS, "chunks": chunks,
+        "generations": generations, "grad_steps": steps,
+        "final_steps": final_steps,
+        "shortened": (f"{generations} of {full[0]} generations, "
+                      f"{final_steps} of {full[2]} final Adam steps"),
+        "seconds": seconds, "gen_seconds": opt.gen_seconds,
+        "seconds_per_generation": gen_s,
+        "images_per_sec": images_per_sec,
+        "main_path_images_per_sec": main_images_per_sec,
+        "loss_curves": curves.tolist(), "final_loss": final.tolist(),
+        "written": written, "attention_launches": counts,
+        "expected_launches": expect,
+        "syncs_in_fused_generations": in_gen,
+        "peak_memory_bytes": peak,
+        "phase_seconds": time.perf_counter() - t_start}
+    emit(result)
+    assert pop == POP and curves.shape == (generations, m), curves.shape
+    assert np.isfinite(curves).all() and np.isfinite(final).all()
+    assert (final < curves[0]).all(), (final, curves[0])
+    assert counts == expect, (counts, expect)
+    assert in_gen == {eigh_site: generations}, in_gen
+    assert {f"out_{i}.jpg" for i in range(m)} <= set(written), written
+    return counts
+
+
+def phase_transform_batched_path():
+    """``examples/invert_biggan_transform_batched.py`` on shifted PNG
+    files, at its ``--smoke`` schedule; see the module docstring."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from pix2latent_tpu_torch.examples import \
+        invert_biggan_transform_batched as ex
+    from pix2latent_tpu_torch.ops import attention as A
+    from pix2latent_tpu_torch.transform import TransformBasinCMAOptimizer
+    from pix2latent_tpu_torch.utils import image
+
+    m, labels = 2, BATCHED_LABELS[:2]
+    (p1_gens, p1_steps), (gens, steps, final_steps) = ex.schedule(
+        argparse.Namespace(smoke=True))
+    t_start = time.perf_counter()
+    search_counts = {}
+    search = TransformBasinCMAOptimizer.optimize_fused_batched
+
+    def counted_search(self, *args, **kwargs):
+        out = search(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        search_counts.update(A.launch_counts())
+        search_counts["seconds"] = time.perf_counter() - t0
+        search_counts["gen_seconds"] = list(self.gen_seconds)
+        search_counts["peak"] = torch.cuda.max_memory_allocated()
+        A.reset_launch_counts()
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        fps = []
+        for i, im in enumerate(_self_targets(m, labels,
+                                             np.linspace(-0.3, 0.3, m))):
+            fps.append(str(Path(tmp) / f"target_{i}.png"))
+            image.save(fps[-1], im)
+        TransformBasinCMAOptimizer.optimize_fused_batched = counted_search
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            A.reset_launch_counts()
+            t0 = time.perf_counter()
+            run = ex.main(["--smoke", "--fps", *fps, "--class_lbls",
+                           *map(str, labels), "--save_dir",
+                           str(Path(tmp) / "out"), "--device", "cuda"])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            latent_counts = A.launch_counts()
+            peak = torch.cuda.max_memory_allocated()
+        finally:
+            TransformBasinCMAOptimizer.optimize_fused_batched = search
+
+    res1, res2 = run["search"], run["result"]
+    p1, p2 = run["search_optimizer"], run["optimizer"]
+    curves1 = res1["loss_curves"]
+    gen_s1 = statistics.mean(search_counts["gen_seconds"][1:])
+    gen_s2 = statistics.mean(p2.gen_seconds[1:] or p2.gen_seconds)
+    expect_search = {"fwd": p1_gens * (p1_steps + 1),
+                     "bwd": p1_gens * p1_steps}
+    expect_latent = {"fwd": gens * (steps + 1) + final_steps + 2,
+                     "bwd": gens * steps + final_steps}
+    counts1 = {k: search_counts[k] for k in ("fwd", "bwd")}
+    result = {
+        "phase": "transform_batched_path", "model": "biggan-deep-256",
+        "entry_point": ("pix2latent_tpu_torch/examples/"
+                        "invert_biggan_transform_batched.py"),
+        "channel_width": 128, "dtype": "bfloat16", "images": m,
+        "schedule": (f"--smoke: search {p1_gens} x {p1_steps} at pop "
+                     f"{p1.num_samples}, inversion {gens} x {steps} + "
+                     f"{final_steps} at pop {p2.popsize} (the example: "
+                     "50 x 10, 30 x 30 + 300)"),
+        "search": {
+            "rows": m * p1.num_samples,
+            "seconds": search_counts["seconds"],
+            "gen_seconds": search_counts["gen_seconds"],
+            "images_per_sec": m * p1.num_samples * p1_steps / gen_s1,
+            "loss_curves": curves1.tolist(),
+            "best_loss": res1["best_loss"].tolist(),
+            "candidate": res1["candidate"].tolist(),
+            "launches": counts1, "expected_launches": expect_search,
+            "peak_memory_bytes": search_counts["peak"]},
+        "inversion": {
+            "rows": m * p2.popsize, "gen_seconds": p2.gen_seconds,
+            "images_per_sec": m * p2.popsize * steps / gen_s2,
+            "loss_curves": res2["loss_curves"].tolist(),
+            "final_loss": res2["loss"].float().cpu().numpy().tolist(),
+            "launches": latent_counts, "expected_launches": expect_latent,
+            "peak_memory_bytes": peak},
+        "seconds": seconds,
+        "phase_seconds": time.perf_counter() - t_start}
+    emit(result)
+    assert p1.num_samples == 7 and p2.popsize == POP
+    assert curves1.shape == (p1_gens, m) and np.isfinite(curves1).all()
+    assert (curves1[-1] < curves1[0]).all(), curves1
+    assert np.isfinite(res2["loss_curves"]).all()
+    assert np.isfinite(result["inversion"]["final_loss"]).all()
+    assert counts1 == expect_search, (counts1, expect_search)
+    assert latent_counts == expect_latent, (latent_counts, expect_latent)
+    return counts1, latent_counts
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--generations", type=int, default=30)
-    ap.add_argument("--final-steps", type=int, default=300)
-    ap.add_argument("--sg2-generations", type=int, default=30)
-    ap.add_argument("--sg2-final-steps", type=int, default=300)
+    # the flagship's 30 generations + 300 final steps cut to 20 + 100, and
+    # cars' to 10 + 100, to keep the script within about half its time limit
+    # with the batched phases on a slow host
+    ap.add_argument("--generations", type=int, default=20)
+    ap.add_argument("--final-steps", type=int, default=100)
+    ap.add_argument("--sg2-generations", type=int, default=10)
+    ap.add_argument("--sg2-final-steps", type=int, default=100)
     ap.add_argument("--ffhq-generations", type=int, default=3)
     # a longer finish than a generation's 30 steps: at 30 the final loss
     # came within 1 % of the first generation's on the card
@@ -1493,7 +1987,8 @@ def main(argv=None):
     env = phase_env()
     phase_build()
     cases = phase_kernels()
-    counts = phase_main_path(args.generations, args.final_steps)
+    counts, main_images_per_sec = phase_main_path(args.generations,
+                                                  args.final_steps)
     phase_whole_step()
     sg2_counts = phase_sg2_path(args.sg2_generations, args.sg2_final_steps)
     phase_sg2_whole_step()
@@ -1504,6 +1999,10 @@ def main(argv=None):
                                        args.biggan_final_steps, cases)
     search_counts, latent_counts = phase_transform_path()
     phase_transform_whole_step()
+    real_counts = phase_real_input_path(args.biggan_generations,
+                                        args.biggan_final_steps)
+    batched_counts = phase_batched_path(main_images_per_sec)
+    tb_search_counts, tb_latent_counts = phase_transform_batched_path()
 
     def timed(kernel, path, dtype="bfloat16", shape=FLAGSHIP):
         """The timed case at the path's shape."""
@@ -1527,6 +2026,20 @@ def main(argv=None):
             ("sagan_attention", "transform_latent", "_f32_transform_latent",
              latent_counts, "sagan_attention.cu",
              {"fwd": "attention.py:131", "bwd": "attention.py:154"}),
+            ("sagan_attention", "real_input", "_f32_real_input",
+             real_counts, "sagan_attention.cu",
+             {"fwd": "attention.py:131", "bwd": "attention.py:154"}),
+            ("sagan_attention", "batched", "_batched", batched_counts,
+             "sagan_attention.cu",
+             {"fwd": "attention.py:131", "bwd": "attention.py:154"}),
+            ("sagan_attention", "transform_batched_search",
+             "_transform_batched_search", tb_search_counts,
+             "sagan_attention.cu",
+             {"fwd": "attention.py:131", "bwd": "attention.py:154"}),
+            ("sagan_attention", "transform_batched_latent",
+             "_transform_batched_latent", tb_latent_counts,
+             "sagan_attention.cu",
+             {"fwd": "attention.py:131", "bwd": "attention.py:154"}),
             ("fir_blur", "main", "", {"fwd": sg2_counts["fir_blur_fwd"],
                                       "bwd": sg2_counts["fir_blur_bwd"]},
              "fir_blur.cu", {"fwd": "pallas_fir.py:108",
@@ -1538,12 +2051,17 @@ def main(argv=None):
                              "bwd": "pallas_fir.py:108"})):
         if path == "transform_search":          # pop 7
             case = timed(kernel, "main", "float32", TRANSFORM_SEARCH)
-        elif path in ("biggan_f32_path", "transform_latent"):   # pop 18
+        elif path in ("biggan_f32_path", "transform_latent",
+                      "real_input"):            # pop 18
             case = timed(kernel, "main", "float32")
+        elif path in ("batched", "transform_batched_latent"):   # 36 rows
+            case = timed(kernel, "main", "bfloat16", BATCHED)
+        elif path == "transform_batched_search":                # 14 rows
+            case = timed(kernel, "main", "bfloat16", TRANSFORM_BATCHED_SEARCH)
         else:
             case = timed(kernel, path)
         for key in ("fwd", "bwd"):
-            extra = ({"design": case["design"]}
+            extra = ({"design": case["design"], "shape": case["shape"]}
                      if kernel == "sagan_attention" else {})
             kernels.append({
                 "name": f"{kernel}_{key}{suffix}", "route": "cuda",

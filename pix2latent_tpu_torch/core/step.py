@@ -16,6 +16,12 @@ variable names are the loss's keywords.
 peak activation memory is one chunk's, and each chunk's gradient is scaled
 by ``chunk / pop`` so that the sum equals the whole population's.
 
+A list of generators in place of one makes the rows that many populations
+of equal size, one after another (the batched transform search): each
+population's hooks draw from its own generator, and the gradient is that of
+the sum of the populations' means, so each population steps as it would
+alone.
+
 ``segment_steps`` cuts a gradient run longer than that into segments of that
 many steps; with ``checkpoint_path`` every run is segmented and the state
 entering a segment (variables, optimizer state, the generator's state,
@@ -80,8 +86,28 @@ def _rows(pop: int, lo: int, hi: int, pad: int):
     return take
 
 
+def row_chunks(total: int, max_batch_size, *trees):
+    """The chunks of ``total`` rows (:func:`chunk_spec`): ``([(real rows,
+    *each tree's rows of the chunk)], chunk size)``; the last chunk wraps
+    the first rows on, detached (see :func:`_rows`)."""
+    n, chunk, pad = chunk_spec(total, max_batch_size)
+    if n == 1:
+        return [(total, *trees)], total
+    out = []
+    for i in range(n):
+        lo, hi = i * chunk, min((i + 1) * chunk, total)
+        take = _rows(total, lo, hi, pad if i == n - 1 else 0)
+        out.append((hi - lo, *(_map_tensors(take, t) for t in trees)))
+    return out, chunk
+
+
 def _cat(parts):
     return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
+def _groups(generator) -> int:
+    """How many populations the rows hold: one per generator of a list."""
+    return len(generator) if isinstance(generator, (list, tuple)) else 1
 
 
 class ExecutionCore:
@@ -99,6 +125,9 @@ class ExecutionCore:
         self.segment_steps = segment_steps
         # transform registry: target variable name -> {fn, param name}
         self.transform_fns: Dict[str, dict] = {}
+        # output variables whose default differs by population group (the
+        # batched transform search): never shrunk to one row
+        self.per_group_outputs = set()
 
     # ------------------------------------------------------------------ #
     # transforms                                                         #
@@ -145,6 +174,7 @@ class ExecutionCore:
             if (spec["default"] is not None and not spec["requires_grad"]
                     and spec["hook_fn"] is None
                     and name not in self.transform_fns
+                    and name not in self.per_group_outputs
                     and data.shape[0] != 1):
                 out["output"][name] = data[:1]
         return out
@@ -181,28 +211,21 @@ class ExecutionCore:
 
     def _chunks(self, variables: Variables, ctx):
         """[(n_real_rows, variables, ctx)] of each population microbatch,
-        and the chunk size (see :func:`chunk_spec`)."""
+        the chunk size and the population (see :func:`row_chunks`)."""
         pop = max(a.shape[0] for d in variables.values() for a in d.values())
-        n, chunk, pad = chunk_spec(pop, self.max_batch_size)
-        if n == 1:
-            return [(pop, variables, ctx)], pop, pop
-        out = []
-        for i in range(n):
-            lo, hi = i * chunk, min((i + 1) * chunk, pop)
-            take = _rows(pop, lo, hi, pad if i == n - 1 else 0)
-            out.append((hi - lo, _map_tensors(take, variables),
-                        _map_tensors(take, ctx)))
-        return out, chunk, pop
+        chunks, chunk = row_chunks(pop, self.max_batch_size, variables, ctx)
+        return chunks, chunk, pop
 
-    def _forward_backward(self, variables: Variables, ctx=None):
-        """Forward, loss and backward of the population mean, chunk by
-        chunk; the gradients accumulate into the variables' ``.grad``.
-        Returns the detached ``(per-sample losses [pop], images)``."""
+    def _forward_backward(self, variables: Variables, ctx=None, groups=1):
+        """Forward, loss and backward of the population mean (of the sum of
+        ``groups`` populations' means), chunk by chunk; the gradients
+        accumulate into the variables' ``.grad``. Returns the detached
+        ``(per-sample losses [pop], images)``."""
         chunks, chunk, pop = self._chunks(variables, ctx)
         losses, outs = [], []
         for real, v, c in chunks:
             loss, per_sample, out = self._forward_loss(v, c)
-            (loss * (chunk / pop)).backward()
+            (loss * (chunk * groups / pop)).backward()
             losses.append(per_sample[:real].detach())
             outs.append(out[:real].detach())
         return _cat(losses), _cat(outs)
@@ -241,8 +264,28 @@ class ExecutionCore:
                      for vt, d in variables.items()}
         return variables, self.var_manager.make_optimizer(variables)
 
+    def _apply_hooks(self, generator, variables: Variables, step) -> Variables:
+        """The variables with the registered hooks applied; with a list of
+        generators, each population's rows from its own generator."""
+        if not isinstance(generator, (list, tuple)):
+            return self.var_manager.apply_hooks(generator, variables, step)
+        hooked = {n for n, spec in self.var_manager.variable_info.items()
+                  if spec["hook_fn"] is not None}
+        split = {vt: {name: t.chunk(len(generator))
+                      for name, t in d.items() if name in hooked}
+                 for vt, d in variables.items()}
+        parts = [self.var_manager.apply_hooks(
+            g, {vt: {name: p[i] for name, p in d.items()}
+                for vt, d in split.items()}, step)
+            for i, g in enumerate(generator)]
+        out = {vt: dict(d) for vt, d in variables.items()}
+        for vt, d in split.items():
+            for name in d:
+                out[vt][name] = torch.cat([p[vt][name] for p in parts])
+        return out
+
     def _hook_in_place(self, generator, variables: Variables, step) -> Variables:
-        hooked = self.var_manager.apply_hooks(generator, variables, step)
+        hooked = self._apply_hooks(generator, variables, step)
         out = {vt: dict(d) for vt, d in variables.items()}
         with torch.no_grad():
             for vt, d in hooked.items():
@@ -292,7 +335,8 @@ class ExecutionCore:
             variables = self._hook_in_place(generator, variables,
                                             start_step + i)
             optimizer.zero_grad()
-            per_sample, out = self._forward_backward(variables, ctx)
+            per_sample, out = self._forward_backward(variables, ctx,
+                                                     _groups(generator))
             optimizer.step()
             losses.append(per_sample)
             if track:
@@ -382,41 +426,55 @@ class ExecutionCore:
         """Hooks + forward + per-sample loss, no updates: ``(out, loss)``."""
         with torch.no_grad():
             variables = self._dedupe_outputs(variables)
-            variables = self.var_manager.apply_hooks(generator, variables, step)
+            variables = self._apply_hooks(generator, variables, step)
             per_sample, out = self._eval_chunked(variables)
         return out, per_sample
 
     def tell_loss(self, variables: Variables, generator, step=0,
-                  inverted=True, ctx=None):
+                  inverted=True, ctx=None, originals=None):
         """Fresh per-sample loss for the CMA tell: hooks applied to a copy,
         then a forward without gradients. With ``inverted`` and a registered
         transform of the target (its parameter a ``transform`` variable),
-        the loss is taken in the un-warped frame (:meth:`_unwarped_loss`),
+        the loss is taken in the un-warped frame (:meth:`_unwarped_loss`,
+        where ``originals`` are the populations' own un-warped targets),
         where ``ctx``, the context of the warped targets, does not apply."""
         with torch.no_grad():
             variables = self._dedupe_outputs(variables)
-            variables = self.var_manager.apply_hooks(generator, variables, step)
+            variables = self._apply_hooks(generator, variables, step)
             if not (inverted and self.transform_fns
                     and "transform" in variables):
                 per_sample, _ = self._eval_chunked(variables, ctx)
                 return per_sample
             outs = [self.model(**self._freeze(v).get("input", {}))[:real]
                     for real, v, _ in self._chunks(variables, None)[0]]
-            return self._unwarped_loss(variables, _cat(outs))
+            return self._unwarped_loss(variables, _cat(outs), originals)
 
-    def _unwarped_loss(self, variables: Variables, out):
+    def _unwarped_loss(self, variables: Variables, out, originals=None):
         """Per-sample loss of the images ``out`` taken back to the original
         frame by the inverse of the target's transform, against the
         registered (un-warped) target and, when a weight is registered, its
-        binarized default."""
+        binarized default. ``originals``, ``{"target": [G, H, W, C],
+        "weight": optional [G, H, W, C]}``, gives G populations of equal
+        size their own un-warped target and weight in place of the
+        registered defaults."""
         info = self.var_manager.variable_info
         td = self.transform_fns["target"]
         param = td["transform_param"]
         t = variables[info[param]["var_type"]][param]
         out_inv = td["fn"](out, t, invert=True)
-        kwargs = {}
-        if "weight" in info and info["weight"]["default"] is not None:
-            kwargs["weight"] = binarize(info["weight"]["default"][None])
-        loss_map = self.loss_fn(out_inv, target=info["target"]["default"][None],
-                                **kwargs)
-        return loss_map.reshape(out.shape[0], -1).mean(dim=1)
+        if originals is None:
+            originals = {"target": info["target"]["default"][None]}
+            if "weight" in info and info["weight"]["default"] is not None:
+                originals["weight"] = info["weight"]["default"][None]
+        groups = originals["target"].shape[0]
+        rows = out.shape[0] // groups
+        losses = []
+        for i in range(groups):
+            kwargs = {}
+            if originals.get("weight") is not None:
+                kwargs["weight"] = binarize(originals["weight"][i:i + 1])
+            loss_map = self.loss_fn(out_inv[i * rows:(i + 1) * rows],
+                                    target=originals["target"][i:i + 1],
+                                    **kwargs)
+            losses.append(loss_map.reshape(rows, -1).mean(dim=1))
+        return _cat(losses)

@@ -3,20 +3,19 @@
 canonical variable registration, the loss and the result file.
 
 Every example runs offline: random weights from a seed unless
-``--checkpoint`` names a converted ``.npz`` (for StyleGAN2 also a
-rosinality ``g_ema`` checkpoint), and a synthetic self-generated target.
-Reading a target image, a mask, or writing images and videos needs the
-image codecs, which are not ported yet: ``--fp``, ``--mask_fp`` and
-``--make_video`` raise.
+``--checkpoint`` names a converted ``.npz`` (for BigGAN also a
+``pytorch_pretrained_biggan`` ``.pt`` / ``.pth``, for StyleGAN2 a
+rosinality ``g_ema`` checkpoint), and a synthetic self-generated target
+unless ``--fp`` names an image (``--mask_fp`` its weight). PNG needs no
+imaging library; other formats and a resize need PIL; ``--make_video``
+needs cv2 or imageio (``utils/image.py``, ``utils/video.py``).
 """
 
 from __future__ import annotations
 
 import argparse
-import os
 import os.path as osp
 import warnings
-import zipfile
 
 import numpy as np
 import torch
@@ -24,24 +23,23 @@ import torch
 import pix2latent_tpu_torch.loss_functions as LF
 from pix2latent_tpu_torch import distribution as dist
 from pix2latent_tpu_torch import hooks
+from pix2latent_tpu_torch.utils import image
 from pix2latent_tpu_torch.utils.misc import to_numpy
-
-NOT_PORTED = ("fp", "mask_fp", "make_video")
+from pix2latent_tpu_torch.utils.project_utils import save_result
 
 
 def base_parser(desc, model="biggan"):
     p = argparse.ArgumentParser(description=desc)
     p.add_argument("--fp", type=str, default=None,
-                   help="target image path (not ported yet: the synthetic "
-                        "target is used)")
+                   help="target image path (synthetic target if omitted)")
     p.add_argument("--mask_fp", type=str, default=None,
-                   help="mask image path (not ported yet)")
+                   help="mask image path: the loss weight, 1 on the object")
     p.add_argument("--class_lbl", type=int, default=153)
     p.add_argument("--lr", type=float, default=0.05)
     p.add_argument("--latent_noise", type=float, default=0.05)
     p.add_argument("--truncate", type=float, default=2.0)
     p.add_argument("--make_video", action="store_true",
-                   help="log frames and write a video (not ported yet)")
+                   help="log frames and write them as out.mp4")
     p.add_argument("--num_samples", type=int, default=9)
     p.add_argument("--max_minibatch", type=int, default=None,
                    help="population microbatch size: bounds peak activation "
@@ -49,8 +47,9 @@ def base_parser(desc, model="biggan"):
                         "FFHQ-1024 x pop-22 recipe uses 2); None runs the "
                         "population whole")
     p.add_argument("--checkpoint", type=str, default=None,
-                   help="pretrained weights: a converted .npz or a "
-                        "rosinality torch checkpoint")
+                   help="pretrained weights: a converted .npz, or a torch "
+                        "checkpoint (BigGAN: pytorch_pretrained_biggan "
+                        ".pt/.pth; StyleGAN2: rosinality)")
     p.add_argument("--save_dir", type=str, default=None)
     p.add_argument("--smoke", action="store_true",
                    help="tiny budgets for a fast sanity run")
@@ -72,32 +71,16 @@ def base_parser(desc, model="biggan"):
     return p
 
 
-def check_ported(args):
-    """Raise on the options that need the image codecs."""
-    for name in NOT_PORTED:
-        if getattr(args, name, None):
-            raise NotImplementedError(
-                f"--{name} is not ported yet: it needs the image codecs of "
-                "utils/image.py and utils/video.py, which a later part of "
-                "the port brings")
-
-
 def load_biggan(args):
     """BigGAN-deep-256 as the JAX package's ``load_biggan`` builds it: float32
     (no bf16 flag for BigGAN), so its SA-GAN attention takes the kernel's
-    float32 route. ``--checkpoint`` must be a ``.npz`` written by the JAX
-    package's ``save_params_npz``."""
+    float32 route. ``--checkpoint``: a ``.npz`` of ``save_params_npz`` or a
+    ``pytorch_pretrained_biggan`` ``.pt`` / ``.pth``; anything else raises
+    ``ValueError``."""
     from pix2latent_tpu_torch.models.biggan import BigGAN
     with warnings.catch_warnings():
         if args.checkpoint:
-            path = args.checkpoint
-            if not (path.endswith(".npz") and zipfile.is_zipfile(path)):
-                raise NotImplementedError(
-                    f"--checkpoint {path!r} is not a .npz of the JAX "
-                    "package's save_params_npz: converting a torch BigGAN "
-                    "checkpoint is not ported yet (ROADMAP.md, queue 1 "
-                    "item 2)")
-            return BigGAN("biggan-deep-256", pretrained_path=path,
+            return BigGAN("biggan-deep-256", pretrained_path=args.checkpoint,
                           device=args.device)
         warnings.simplefilter("ignore")
         return BigGAN("biggan-deep-256", device=args.device)
@@ -120,24 +103,43 @@ def load_stylegan2(args):
         return StyleGAN2(args.model, **kwargs)
 
 
-def load_target(args, model):
-    """Target and weight, NHWC [im, im, 3] in [-1, 1]: the synthetic
-    self-generated target and a weight of ones. For BigGAN the image of a z
-    of 128 and the class embedding of ``--class_lbl``, for StyleGAN2 of a z
-    of 512 through the z path even in w+ search; z is drawn from a torch
-    generator seeded 1, so the target differs from the JAX package's (whose
-    z comes from ``PRNGKey(1)``)."""
-    print("no --fp given: using a synthetic self-generated target")
-    gen = torch.Generator(device=model.device).manual_seed(1)
-    with torch.no_grad():
-        if hasattr(model, "get_class_embedding"):
-            z = torch.randn((1, 128), generator=gen, device=model.device)
-            target = model(z, model.get_class_embedding(args.class_lbl))[0]
-        else:
-            z = torch.randn((1, 512), generator=gen, device=model.device)
-            target = model.generator(z).clamp(-1.0, 1.0).permute(0, 2, 3,
-                                                                 1)[0]
-    return target, torch.ones_like(target)
+def load_target(args, model, style=None):
+    """Target and weight, ``[im, im, 3]`` in [-1, 1] on ``args.device``.
+
+    With ``--fp`` the image, read at the model's resolution: for BigGAN the
+    short side resized and center-cropped, for StyleGAN2 padded to a square
+    and resized (``style`` overrides). Without it the synthetic
+    self-generated target: for BigGAN the image of a z of 128 and the class
+    embedding of ``--class_lbl``, for StyleGAN2 of a z of 512 through the z
+    path even in w+ search; z is drawn from a torch generator seeded 1, so
+    the target differs from the JAX package's (whose z comes from
+    ``PRNGKey(1)``). The weight is ``--mask_fp`` read the same way, taken
+    to [0.3, 1], or ones."""
+    is_biggan = hasattr(model, "get_class_embedding")
+    if style is None:
+        style = "biggan" if is_biggan else "stylegan2"
+    im_size = model.im_res
+    if args.fp:
+        target = image.read(args.fp, im_size=im_size, transform_style=style,
+                            device=model.device)
+    else:
+        print("no --fp given: using a synthetic self-generated target")
+        gen = torch.Generator(device=model.device).manual_seed(1)
+        with torch.no_grad():
+            if is_biggan:
+                z = torch.randn((1, 128), generator=gen, device=model.device)
+                target = model(z, model.get_class_embedding(args.class_lbl))[0]
+            else:
+                z = torch.randn((1, 512), generator=gen, device=model.device)
+                target = model.generator(z).clamp(-1.0, 1.0).permute(
+                    0, 2, 3, 1)[0]
+    if args.mask_fp:
+        weight = image.read(args.mask_fp, im_size=im_size,
+                            transform_style=style, device=model.device)
+        weight = torch.clamp((weight + 1.0) / 2.0, 0.3, 1.0)
+    else:
+        weight = torch.ones_like(target)
+    return target, weight
 
 
 def register_biggan_vars(vm, model, args, target, weight):
@@ -216,18 +218,21 @@ def make_loss(args, net="alex"):
 
 
 def finish(args, opt, variables, outs, losses, default_dir):
-    """Write ``result.npz`` to the save directory: every variable as
+    """Write the run's results to the save directory and return it: the
+    bundle of ``utils/project_utils.save_result`` (``vars.npy``,
+    ``losses.npy``, ``out.jpg``, ``best.jpg``, and with ``--make_video``
+    ``out.mp4``), and ``result.npz``: every variable as
     ``variables/<type>/<name>``, the last logged loss (``loss``, at step
     ``loss_step``), each generation's min tell loss (``tell_min``, when the
-    driver recorded them) and the tracked variables (``tracked/<name>``).
-    Returns the directory."""
-    del outs                          # collages go to image files: not ported
+    driver recorded them) and the tracked variables (``tracked/<name>``)."""
     save_dir = args.save_dir or default_dir
-    os.makedirs(save_dir, exist_ok=True)
+    step, final = losses[-1]
+    loss = np.asarray(to_numpy(final["loss"]))
+    save_result(save_dir, variables, outs, losses, out_images=opt.out,
+                make_video=args.make_video)
     payload = {f"variables/{vt}/{name}": to_numpy(t)
                for vt, d in variables.items() for name, t in d.items()}
-    step, final = losses[-1]
-    payload["loss"] = np.asarray(final["loss"])
+    payload["loss"] = loss
     payload["loss_step"] = np.int64(step)
     if opt.losses and not isinstance(opt.losses[0], list):
         payload["tell_min"] = np.asarray(opt.losses, np.float64)
@@ -235,5 +240,5 @@ def finish(args, opt, variables, outs, losses, default_dir):
         payload[f"tracked/{name}"] = np.asarray(arr)
     path = osp.join(save_dir, "result.npz")
     np.savez(path, **payload)
-    print(f"done: best loss {payload['loss'].min():.4f} -> {path}")
+    print(f"done: best loss {payload['loss'].min():.4f} -> {save_dir}")
     return save_dir

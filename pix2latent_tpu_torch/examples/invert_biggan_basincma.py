@@ -8,18 +8,21 @@ attention takes the kernel's float32 route. ``--fused`` drives
 ``optimize_fused`` (one function per generation that reads nothing back),
 ``--resume PATH`` checkpoints the run there and resumes it from there,
 ``--smoke`` runs 2 generations of 5 steps and 10 final steps. ``--device
-cpu`` runs the plain PyTorch paths.
+cpu`` runs the plain PyTorch paths. ``--fp`` inverts an image (``--mask_fp``
+weights the loss by a mask) and ``--checkpoint`` takes converted weights
+(``.npz``) or a ``pytorch_pretrained_biggan`` ``.pt`` / ``.pth``.
 
     python -m pix2latent_tpu_torch.examples.invert_biggan_basincma \\
-        [--smoke] [--fused] [--resume PATH] [--device cpu]
+        [--fp IMAGE] [--mask_fp MASK] [--checkpoint WEIGHTS] [--smoke] \\
+        [--fused] [--resume PATH] [--make_video] [--device cpu]
 """
 
 from __future__ import annotations
 
 from pix2latent_tpu_torch import VariableManager
-from pix2latent_tpu_torch.examples.common import (base_parser, check_ported,
-                                                  finish, load_biggan,
-                                                  load_target, make_loss,
+from pix2latent_tpu_torch.examples.common import (base_parser, finish,
+                                                  load_biggan, load_target,
+                                                  make_loss,
                                                   register_biggan_vars)
 from pix2latent_tpu_torch.optimizers import BasinCMAOptimizer
 
@@ -41,14 +44,13 @@ def schedule(args):
 
 def main(argv=None):
     args = parser().parse_args(argv)
-    check_ported(args)
     args.grad_free = True
     model = load_biggan(args)
     target, weight = load_target(args, model)
 
     vm = register_biggan_vars(VariableManager(device=args.device), model,
                               args, target, weight)
-    opt = BasinCMAOptimizer(model, vm, make_loss(args),
+    opt = BasinCMAOptimizer(model, vm, make_loss(args), log=args.make_video,
                             max_batch_size=args.max_minibatch,
                             device=args.device)
     meta, grad, last = schedule(args)

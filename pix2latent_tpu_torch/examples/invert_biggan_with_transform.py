@@ -11,8 +11,9 @@ and the weight warped by ``t`` and the CMA tells taken in the un-warped
 frame. ``--color_transform hue,brightness`` adds color transforms to the
 search, the weight warped by the spatial part only. The generator runs in
 float32, so the SA-GAN attention takes the kernel's float32 route.
-``--smoke`` runs 3 x 4 search steps and a short phase 2; ``--device cpu``
-runs the plain PyTorch paths.
+``--mask_fp`` weights the loss by a mask and pre-aligns the search to
+BigGAN's object prior. ``--smoke`` runs 3 x 4 search steps and a short
+phase 2; ``--device cpu`` runs the plain PyTorch paths.
 
     python -m pix2latent_tpu_torch.examples.invert_biggan_with_transform \\
         [--smoke] [--fused] [--method adam|cma|basincma] \\
@@ -22,15 +23,16 @@ runs the plain PyTorch paths.
 from __future__ import annotations
 
 from pix2latent_tpu_torch import VariableManager
-from pix2latent_tpu_torch.examples.common import (base_parser, check_ported,
-                                                  finish, load_biggan,
-                                                  load_target, make_loss,
+from pix2latent_tpu_torch.examples.common import (base_parser, finish,
+                                                  load_biggan, load_target,
+                                                  make_loss,
                                                   register_biggan_vars)
 from pix2latent_tpu_torch.optimizers import (BasinCMAOptimizer, CMAOptimizer,
                                              GradientOptimizer)
 from pix2latent_tpu_torch.transform import (SpatialOnly, SpatialTransform,
                                             TransformBasinCMAOptimizer,
                                             setup_transform_fn)
+from pix2latent_tpu_torch.utils.image import binarize
 
 
 def parser():
@@ -84,17 +86,19 @@ def build_transforms(vm, args, mask=None):
 
 def main(argv=None):
     args = parser().parse_args(argv)
-    check_ported(args)
     args.grad_free = False            # z is Adam-only in the transform search
     model = load_biggan(args)
     target, weight = load_target(args, model)
     vm = register_biggan_vars(VariableManager(device=args.device), model,
                               args, target, weight)
-    target_tf, weight_tf = build_transforms(vm, args)
+    # a mask pre-aligns the search to BigGAN's object prior
+    mask = binarize(weight) if args.mask_fp else None
+    target_tf, weight_tf = build_transforms(vm, args, mask=mask)
     (meta, grad), phase2 = schedule(args)
 
     # -- phase 1: the transform search -- #
     t_opt = TransformBasinCMAOptimizer(model, vm, make_loss(args),
+                                       log=args.make_video,
                                        max_batch_size=args.max_minibatch,
                                        device=args.device)
     t_opt.register_transform(target_tf, "t", "target")
@@ -114,6 +118,7 @@ def main(argv=None):
     drivers = {"adam": GradientOptimizer, "cma": CMAOptimizer,
                "basincma": BasinCMAOptimizer}
     opt = drivers[args.method](model, vm, make_loss(args),
+                               log=args.make_video,
                                max_batch_size=args.max_minibatch,
                                device=args.device)
     opt.register_transform(target_tf, "t", "target")

@@ -13,7 +13,9 @@ At 1024x1024 and a population of 22 the recipe bounds the activations:
 Flags override it (``--no_recipe`` turns it off; ``--model cars`` ignores
 it). ``--fused`` drives ``optimize_fused`` (one function per generation that
 reads nothing back), ``--resume PATH`` checkpoints the run there and resumes
-it from there. ``--device cpu`` runs the plain PyTorch paths.
+it from there. ``--device cpu`` runs the plain PyTorch paths. ``--fp``
+inverts an image (padded to a square, resized; ``--mask_fp`` weights the
+loss), ``--make_video`` writes the logged frames as ``out.mp4``.
 
     python -m pix2latent_tpu_torch.examples.invert_stylegan2_ffhq_basincma \\
         [--smoke] [--fused] [--resume PATH] [--device cpu]
@@ -24,7 +26,7 @@ from __future__ import annotations
 from pix2latent_tpu_torch import VariableManager
 from pix2latent_tpu_torch.examples.common import (base_parser,
                                                   cars_loss_mask,
-                                                  check_ported, finish,
+                                                  finish,
                                                   load_stylegan2, load_target,
                                                   make_loss,
                                                   register_stylegan2_vars)
@@ -56,7 +58,6 @@ def main(argv=None):
                    help="one function per CMA generation, reading nothing "
                         "back")
     args = apply_ffhq_recipe(p.parse_args(argv))
-    check_ported(args)
     args.grad_free = True
     model = load_stylegan2(args)
     im = model.im_res
@@ -65,7 +66,7 @@ def main(argv=None):
     vm = register_stylegan2_vars(
         VariableManager(device=args.device), model, args, target, weight,
         loss_mask=cars_loss_mask(im, args.model))
-    opt = BasinCMAOptimizer(model, vm, make_loss(args),
+    opt = BasinCMAOptimizer(model, vm, make_loss(args), log=args.make_video,
                             max_batch_size=args.max_minibatch,
                             device=args.device)
     opt.log_resize_factor = 0.25

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import math
 import warnings
+import zipfile
 from typing import Optional
 
 import numpy as np
@@ -296,8 +297,10 @@ class BigGAN(nn.Module):
 
     ``params``: the JAX package's parameter tree ``{"generator": ...,
     "embeddings": ...}``, nested or flat (``/``-joined paths);
-    ``pretrained_path``: a ``.npz`` written by ``save_params_npz``. With
-    neither, a deterministic random init from ``seed``. ``remat`` recomputes
+    ``pretrained_path``: a ``.npz`` written by ``save_params_npz`` (either
+    package's) or a ``pytorch_pretrained_biggan`` state dict saved by
+    ``torch.save`` (``.pt`` / ``.pth``), converted by
+    :func:`convert_torch_biggan`. With neither, a deterministic random init from ``seed``. ``remat`` recomputes
     every residual block's activations in the backward instead of keeping
     them, ``remat_from_res`` the blocks whose output resolution is at least
     that (``torch.utils.checkpoint``, the JAX package's ``nn.remat``).
@@ -320,7 +323,7 @@ class BigGAN(nn.Module):
                                              remat_from_res=remat_from_res)
         self.embeddings = ClassEmbeddings()
         if params is None and pretrained_path:
-            params = load_params_npz(pretrained_path)
+            params = load_pretrained(pretrained_path, model_version)
         if params is not None:
             if any(isinstance(v, dict) for v in params.values()):
                 params = _flatten(params)
@@ -356,3 +359,109 @@ class BigGAN(nn.Module):
             raise ValueError(f"expected c of shape (?, {EMBED_DIM}) but got "
                              f"{tuple(c.shape)}")
         return self.generator(z, c, truncation)
+
+
+# --------------------------------------------------------------------- #
+# weight conversion (pytorch_pretrained_biggan state dict)               #
+# --------------------------------------------------------------------- #
+
+def _np(value):
+    if isinstance(value, torch.Tensor):
+        value = value.detach().cpu().numpy()
+    return np.asarray(value, np.float32)
+
+
+def _sn_effective_weight(sd, prefix):
+    """The weight of ``prefix`` with its spectral norm baked in: ``W_orig /
+    (u^T W v)`` by one power step from the stored ``weight_u``, as torch's
+    ``spectral_norm`` computes it at eval. A plain ``weight`` is returned
+    as it is."""
+    w_key = f"{prefix}.weight_orig"
+    if w_key not in sd:
+        return _np(sd[f"{prefix}.weight"])
+    w = _np(sd[w_key])
+    u = _np(sd[f"{prefix}.weight_u"])
+    w_mat = w.reshape(w.shape[0], -1)
+    v = w_mat.T @ u
+    v = v / max(np.linalg.norm(v), 1e-12)
+    u2 = w_mat @ v
+    sigma = float(u2 @ u)
+    return w / max(sigma, 1e-12)
+
+
+def convert_torch_biggan(state_dict, model_version="biggan-deep-256"):
+    """A ``pytorch_pretrained_biggan`` state dict as the JAX package's nested
+    parameter tree of numpy arrays (``{"generator": ..., "embeddings":
+    ...}``), which :class:`BigGAN` loads through ``from_jax_params``.
+
+    Convs OIHW -> HWIO, linears ``[out, in]`` -> ``[in, out]``, spectral norm
+    baked with the stored ``weight_u`` (:func:`_sn_effective_weight`). The
+    checkpoint keeps its blocks and the attention layer in one list,
+    ``generator.layers.<i>``, where attention takes a slot of its own."""
+    sd = dict(state_dict)
+    cfg = BIGGAN_CONFIGS[model_version]
+
+    def lin(prefix):
+        p = {"kernel": _sn_effective_weight(sd, prefix).T}
+        if f"{prefix}.bias" in sd:
+            p["bias"] = _np(sd[f"{prefix}.bias"])
+        return p
+
+    def conv(prefix):
+        w = _sn_effective_weight(sd, prefix)
+        p = {"kernel": np.transpose(w, (2, 3, 1, 0))}
+        if f"{prefix}.bias" in sd:
+            p["bias"] = _np(sd[f"{prefix}.bias"])
+        return p
+
+    def bn(prefix, conditional=True):
+        p = {"running_means": _np(sd[f"{prefix}.running_means"]),
+             "running_vars": _np(sd[f"{prefix}.running_vars"])}
+        if conditional:
+            p["scale"] = lin(f"{prefix}.scale")
+            p["offset"] = lin(f"{prefix}.offset")
+        else:
+            p["weight"] = _np(sd[f"{prefix}.weight"])
+            p["bias"] = _np(sd[f"{prefix}.bias"])
+        return p
+
+    gen = {"gen_z": lin("generator.gen_z")}
+    t_idx = 0
+    for i in range(len(cfg["layers"])):
+        if i == cfg["attention_position"]:
+            ap = f"generator.layers.{t_idx}"
+            gen[f"attn_{i}"] = {
+                "theta": conv(f"{ap}.snconv1x1_theta"),
+                "phi": conv(f"{ap}.snconv1x1_phi"),
+                "g": conv(f"{ap}.snconv1x1_g"),
+                "o_conv": conv(f"{ap}.snconv1x1_o_conv"),
+                "gamma": _np(sd[f"{ap}.gamma"]).reshape(()),
+            }
+            t_idx += 1
+        bp = f"generator.layers.{t_idx}"
+        gen[f"block_{i}"] = {f"{kind}_{j}": (bn if kind == "bn" else conv)(
+            f"{bp}.{kind}_{j}") for j in range(4) for kind in ("bn", "conv")}
+        t_idx += 1
+    gen["bn_out"] = bn("generator.bn", conditional=False)
+    gen["conv_to_rgb"] = conv("generator.conv_to_rgb")
+    # the class embedding: a plain Linear(1000 -> 128), no bias, no SN
+    emb = {"embeddings": {"kernel": _np(sd["embeddings.weight"]).T}}
+    return {"generator": gen, "embeddings": emb}
+
+
+def load_pretrained(path, model_version="biggan-deep-256"):
+    """The parameter tree in ``path``: a ``.npz`` of ``save_params_npz``
+    (flat), or a ``.pt`` / ``.pth`` state dict of ``pytorch_pretrained_biggan``
+    (converted). Any other file raises ``ValueError``."""
+    path = str(path)
+    if path.endswith(".npz"):
+        if not zipfile.is_zipfile(path):
+            raise ValueError(f"{path!r} is not a .npz archive of "
+                             "save_params_npz")
+        return load_params_npz(path)
+    if path.endswith((".pt", ".pth")):
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+        return convert_torch_biggan(sd, model_version)
+    raise ValueError(f"BigGAN weights {path!r}: expected a .npz written by "
+                     "save_params_npz or a pytorch_pretrained_biggan state "
+                     "dict saved as .pt / .pth")

@@ -8,6 +8,11 @@ in production, float64 in the numerical cross-checks.
 
 Eigenvectors from ``torch.linalg.eigh`` may differ in sign from
 ``jnp.linalg.eigh``; ``C``, ``mean``, ``sigma`` and the paths do not.
+
+:func:`ask` and :func:`tell` also take M independent states stacked on a
+leading axis (:func:`stack_states`; candidates ``[M, popsize, n]``, fitness
+``[M, popsize]``): the M tells then share one batched ``eigh``, and so one
+host sync.
 """
 
 from __future__ import annotations
@@ -116,27 +121,37 @@ def init(mean, sigma: float = 1.0, popsize: Optional[int] = None,
     return params, state
 
 
+def stack_states(state: CMAState, m: int) -> CMAState:
+    """``m`` copies of ``state`` stacked on a leading axis."""
+    return CMAState(*(t.expand(m, *t.shape).clone() for t in state))
+
+
 def ask(params: CMAParams, state: CMAState, generator) -> torch.Tensor:
-    """Sample lambda candidates ~ N(mean, sigma^2 C): ``[popsize, n]``."""
+    """Sample lambda candidates ~ N(mean, sigma^2 C): ``[popsize, n]``, or
+    ``[M, popsize, n]`` for stacked states."""
     x, _ = ask_with_y(params, state, generator)
     return x
 
 
 def ask_with_y(params: CMAParams, state: CMAState, generator):
     """Like :func:`ask`, also returning ``y`` with ``x = mean + sigma * y``."""
-    z = torch.randn((params.popsize, params.n), generator=generator,
+    batch = tuple(state.mean.shape[:-1])
+    z = torch.randn((*batch, params.popsize, params.n), generator=generator,
                     device=state.mean.device, dtype=state.mean.dtype)
-    y = (z * state.D[None, :]) @ state.B.T
-    return state.mean[None, :] + state.sigma * y, y
+    y = (z * state.D[..., None, :]) @ state.B.transpose(-1, -2)
+    return state.mean[..., None, :] + state.sigma[..., None, None] * y, y
 
 
 def sanitize_fitness(fitness: torch.Tensor) -> torch.Tensor:
-    """Replace non-finite fitness with a worse-than-worst penalty; an
-    all-non-finite generation maps to one penalty (stable ranking)."""
+    """Replace non-finite fitness with a worse-than-worst penalty (per row
+    of the last axis); an all-non-finite generation maps to one penalty
+    (stable ranking)."""
     finite = torch.isfinite(fitness)
     neg_inf = torch.full_like(fitness, -math.inf)
-    worst = torch.max(torch.where(finite, fitness, neg_inf))
-    worst = torch.where(finite.any(), worst, torch.zeros_like(worst))
+    worst = torch.amax(torch.where(finite, fitness, neg_inf), dim=-1,
+                       keepdim=True)
+    worst = torch.where(finite.any(dim=-1, keepdim=True), worst,
+                        torch.zeros_like(worst))
     penalty = worst + 1e3 * (1.0 + worst.abs())
     return torch.where(finite, fitness, penalty)
 
@@ -144,26 +159,36 @@ def sanitize_fitness(fitness: torch.Tensor) -> torch.Tensor:
 def tell(params: CMAParams, state: CMAState, x: torch.Tensor,
          fitness: torch.Tensor, y: Optional[torch.Tensor] = None,
          refresh_eigen: bool = True) -> CMAState:
-    """Rank candidates by fitness (lower is better) and update the strategy.
+    """Rank candidates by fitness (lower is better) and update the strategy;
+    stacked states take ``x [M, popsize, n]`` and ``fitness [M, popsize]``
+    and update each state from its own row.
 
     Pass ``y`` from :func:`ask_with_y` to avoid the cancellation in
     ``(x - mean) / sigma`` when ``sigma`` is tiny. Arithmetic runs in the
     state's dtype."""
     dt = state.mean.dtype
     fitness = sanitize_fitness(fitness.to(dt))
-    order = torch.argsort(fitness, stable=True)
-    w = params.weights.to(dt)[torch.argsort(order, stable=True)]
+    order = torch.argsort(fitness, dim=-1, stable=True)
+    w = params.weights.to(dt)[torch.argsort(order, dim=-1, stable=True)]
+    sigma0 = state.sigma[..., None]                   # [..., 1]
     if y is None:
-        y = (x.to(dt) - state.mean[None, :]) / state.sigma
+        y = (x.to(dt) - state.mean[..., None, :]) / sigma0[..., None]
+
+    def vec(v, m):               # (v [..., k]) @ (m [..., k, n]) -> [..., n]
+        return (v[..., None, :] @ m)[..., 0, :]
+
+    def mat_vec(m, v):           # (m [..., n, k]) @ (v [..., k]) -> [..., n]
+        return (m @ v[..., :, None])[..., 0]
 
     # mean and paths use the positive weights only (aCMA's negative weights
     # act on the covariance alone)
     w_pos = torch.clamp(w, min=0.0)
-    y_w = w_pos @ y
-    new_mean = state.mean + state.sigma * y_w
+    y_w = vec(w_pos, y)
+    new_mean = state.mean + sigma0 * y_w
 
     inv_d = 1.0 / torch.clamp(state.D, min=1e-20)
-    c_inv_sqrt_yw = state.B @ (inv_d * (state.B.T @ y_w))
+    c_inv_sqrt_yw = mat_vec(state.B,
+                            inv_d * mat_vec(state.B.transpose(-1, -2), y_w))
 
     cs, cc, c1, cmu = params.cs, params.cc, params.c1, params.cmu
     mueff, chi_n = params.mueff, params.chi_n
@@ -172,7 +197,7 @@ def tell(params: CMAParams, state: CMAState, x: torch.Tensor,
                math.sqrt(cs * (2.0 - cs) * mueff) * c_inv_sqrt_yw)
 
     gen1 = state.gen.to(dt) + 1.0
-    ps_norm = torch.linalg.norm(p_sigma)
+    ps_norm = torch.linalg.norm(p_sigma, dim=-1)
     # a fill, not torch.tensor(..., device=...): a host-to-device copy
     # waits for the device
     denom = torch.sqrt(1.0 - torch.pow(
@@ -181,23 +206,23 @@ def tell(params: CMAParams, state: CMAState, x: torch.Tensor,
                1.4 + 2.0 / (params.n + 1.0)).to(dt)
 
     p_c = ((1.0 - cc) * state.p_c +
-           h_sigma * math.sqrt(cc * (2.0 - cc) * mueff) * y_w)
+           h_sigma[..., None] * math.sqrt(cc * (2.0 - cc) * mueff) * y_w)
 
     if params.active:
         # negative weights rescaled by n / ||C^{-1/2} y_i||^2 (tutorial eq. 53)
-        y_eig = (y @ state.B) * inv_d[None, :]
-        norm2 = (y_eig ** 2).sum(dim=1)
+        y_eig = (y @ state.B) * inv_d[..., None, :]
+        norm2 = (y_eig ** 2).sum(dim=-1)
         w_o = torch.where(w >= 0.0, w,
                           w * params.n / torch.clamp(norm2, min=1e-20))
     else:
         w_o = w
-    rank_mu = (y * w_o[:, None]).T @ y
-    delta_h = (1.0 - h_sigma) * cc * (2.0 - cc)
-    w_sum = w.sum() if params.active else 1.0
+    rank_mu = (y * w_o[..., None]).transpose(-1, -2) @ y
+    delta_h = ((1.0 - h_sigma) * cc * (2.0 - cc))[..., None, None]
+    w_sum = w.sum(dim=-1)[..., None, None] if params.active else 1.0
     C = ((1.0 - c1 - cmu * w_sum) * state.C +
-         c1 * (torch.outer(p_c, p_c) + delta_h * state.C) +
+         c1 * (p_c[..., :, None] * p_c[..., None, :] + delta_h * state.C) +
          cmu * rank_mu)
-    C = 0.5 * (C + C.T)
+    C = 0.5 * (C + C.transpose(-1, -2))
 
     sigma = state.sigma * torch.exp((cs / params.damps) * (ps_norm / chi_n - 1.0))
     sigma = torch.clamp(sigma, 1e-12, 1e12)

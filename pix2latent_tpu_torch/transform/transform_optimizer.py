@@ -4,9 +4,12 @@
 CMA searches the transform parameter ``t`` while an inner Adam loop
 re-optimizes the latent against the target warped by each candidate. The
 CMA tell scores each candidate in the un-warped frame
-(``ExecutionCore.tell_loss``). *Variable propagation* carries an EMA of the
-best-loss latent across generations and resamples each new population
+(``ExecutionCore.tell_loss``). *Variable propagation* carries an EMA of
+the best-loss latent across generations and resamples each new population
 around it with annealed noise, renormalized per sample.
+``optimize_fused_batched`` runs M such searches, each with its own CMA
+state, propagation means, candidate and ``torch.Generator``, their
+populations through the generator together.
 """
 
 from __future__ import annotations
@@ -96,12 +99,12 @@ class TransformBasinCMAOptimizer(_BaseOptimizer, _BaseCMAOptimizer):
                                        ema_beta)
 
     def _resample(self, data, mean, curr_iter, total_iter, magnitude,
-                  renormalize):
+                  renormalize, generator=None):
         """``mean`` plus noise of scale ``magnitude * (1 - curr_iter /
-        total_iter)`` drawn from the optimizer's generator, each sample then
-        renormalized to zero mean and unit std (ddof 1)."""
+        total_iter)`` drawn from ``generator`` (default: the optimizer's),
+        each sample then renormalized to zero mean and unit std (ddof 1)."""
         z_sigma = magnitude * (1.0 - curr_iter / float(total_iter))
-        noise = torch.randn(data.shape, generator=self.generator,
+        noise = torch.randn(data.shape, generator=generator or self.generator,
                             device=data.device, dtype=data.dtype)
         new = mean[None] + z_sigma * noise
         if renormalize:
@@ -328,6 +331,224 @@ class TransformBasinCMAOptimizer(_BaseOptimizer, _BaseCMAOptimizer):
                                      variables.get("input", {}).items()})
         results = ([to_grid(self.out)], [to_grid(targets)], candidate_out)
         return variables, results, self.loss
+
+    # -- M searches at once ---------------------------------------------- #
+
+    def _run_generation_batched(self, carry, gens, defaults, gen_idx,
+                                grad_steps, meta_steps, with_tell):
+        """One generation of M searches, rows concatenated: search i draws
+        its population (with its own ``defaults`` rows), its ask and its
+        propagation noise from ``gens[i]`` as :meth:`_run_generation` does
+        from the optimizer's generator, then the ``[M*pop]`` rows run the
+        inner Adam steps (each search's gradient its own population mean),
+        the un-warped tell against each search's own original target and
+        weight, and one batched CMA tell. ``carry`` is ``(stacked CMA
+        states, {name: [M, ...]} means, best losses [M], best t [M, d])``.
+        Returns ``(carry, (variables, tell losses [M, pop] with non-finite
+        values at inf, last inner step's warped-frame losses [M, pop]))``."""
+        core = self.core
+        gf_type, gf_name, gf_shape = self._gf_var
+        n, m = self.num_samples, len(gens)
+        states, vp_means, best_loss, best_t = carry
+
+        parts, asks = [], []
+        for i, g in enumerate(gens):
+            v = self.var_manager.initialize(
+                num_samples=n, generator=g,
+                defaults={k: d[i] for k, d in defaults.items()})
+            state_i = cma.CMAState(*(f[i] for f in states))
+            t = cma.ask(self.cma_params, state_i, g)
+            v[gf_type][gf_name] = t.reshape(n, *gf_shape).clone()
+            if gen_idx > 0:
+                for name in self.variables_to_propagate:
+                    v["input"][name] = self._resample(
+                        v["input"][name], vp_means[name][i], gen_idx,
+                        meta_steps, 1.0, True, generator=g)
+            parts.append(v)
+            asks.append(t)
+        variables = {vt: {name: torch.cat([p[vt][name] for p in parts])
+                          for name in d} for vt, d in parts[0].items()}
+        t = torch.stack(asks)                                # [M, pop, d]
+
+        variables = core._dedupe_outputs(core.apply_transforms(variables))
+        ctx = core.make_ctx(variables)
+        variables, optimizer = core.init_opt_state(variables)
+        start_step = gen_idx * grad_steps
+        inner = None
+        if grad_steps:
+            variables, _, _, ys = core.grad_steps(
+                variables, optimizer, list(gens), grad_steps,
+                start_step=start_step, ctx=ctx, track=False)
+            inner = ys["loss"][-1].reshape(m, n)
+        info = self.var_manager.variable_info
+        originals = {"target": defaults["target"]}
+        if "weight" in info and "weight" in defaults:
+            originals["weight"] = defaults["weight"]
+        loss = core.tell_loss(variables, list(gens), start_step + grad_steps,
+                              ctx=ctx, originals=originals).reshape(m, n)
+        if with_tell:
+            states = cma.tell(self.cma_params, states, t, loss)
+
+        loss = torch.where(torch.isfinite(loss), loss,
+                           torch.full_like(loss, math.inf))
+        best = loss.argmin(dim=1)
+        rows = torch.arange(m, device=loss.device) * n + best
+        vp_means = dict(vp_means)
+        for name in self.variables_to_propagate:
+            data = variables["input"][name].detach()
+            base = (vp_means[name] if gen_idx > 0 else
+                    data.reshape(m, n, *data.shape[1:]).mean(dim=1))
+            vp_means[name] = ((1.0 - 0.5) * base
+                              + 0.5 * data.index_select(0, rows))
+        lmin = loss.min(dim=1).values
+        t_best = t.reshape(m * n, -1).index_select(0, rows)
+        best_t = torch.where((lmin < best_loss)[:, None], t_best, best_t)
+        best_loss = torch.minimum(lmin, best_loss)
+        return ((states, vp_means, best_loss, best_t),
+                (variables, loss, loss if inner is None else inner))
+
+    def optimize_fused_batched(self, batch_defaults, meta_steps, grad_steps,
+                               last_grad_steps=None, popsize=None,
+                               active=False, seeds=None,
+                               checkpoint_path=None, checkpoint_every=1):
+        """M independent transform searches, their rows run together
+        (:meth:`_run_generation_batched`), each with its own CMA state,
+        propagation means, candidate and ``torch.Generator``. Search i
+        draws exactly what a solo :meth:`optimize_fused` of an optimizer
+        with ``seed=seeds[i]`` draws, so it follows that search's
+        trajectory.
+
+        Args:
+            batch_defaults: ``{name: [M, ...]}`` per-search defaults (the
+                ``target``, the ``weight``); every other registered default
+                is shared.
+            seeds: M seeds (default ``0 .. M-1``).
+            checkpoint_path: the carry and the M generators' states entering
+                a generation are saved after it ran, and the state entering
+                the last generation before that one runs, so a re-run of a
+                finished search runs only the last generation.
+
+        Returns a dict: ``candidate [M, *t_shape]``, ``best_loss [M]``, the
+        last generation's un-warped tell losses ``loss [M, pop]`` and
+        warped-frame last-step losses ``inner_loss [M, pop]``,
+        ``candidate_out [M, H, W, C]`` (the best sample's warped target),
+        the last ``variables``, ``cma_states``, ``vp_means`` and
+        ``loss_curves [generations run, M]`` (numpy, each generation's min
+        tell losses)."""
+        self.setup_cma(self.var_manager, popsize=popsize, active=active)
+        self._check_propagated()
+        if last_grad_steps is None:
+            last_grad_steps = grad_steps
+        gf_shape = self._gf_var[2]
+        info, dev = self.var_manager.variable_info, self.device
+
+        defaults = {k: torch.as_tensor(to_numpy(v) if not isinstance(
+            v, torch.Tensor) else v, dtype=torch.float32).to(dev)
+            for k, v in batch_defaults.items()}
+        m = next(iter(defaults.values())).shape[0]
+        unknown = sorted(k for k in defaults
+                         if k not in info or info[k]["default"] is None)
+        if unknown:
+            raise ValueError(f"batch_defaults for unregistered or "
+                             f"defaultless variables: {unknown}")
+        for k, v in defaults.items():
+            if v.shape[0] != m or tuple(v.shape[1:]) != info[k]["shape"]:
+                raise ValueError(f"batch_defaults[{k!r}] has shape "
+                                 f"{tuple(v.shape)}, expected [{m}, "
+                                 f"{', '.join(map(str, info[k]['shape']))}]")
+        if "target" not in defaults:
+            defaults["target"] = info["target"]["default"].expand(
+                m, *info["target"]["shape"])
+        if "weight" in info and info["weight"]["default"] is not None \
+                and "weight" not in defaults:
+            defaults["weight"] = info["weight"]["default"].expand(
+                m, *info["weight"]["shape"])
+
+        seeds = np.arange(m) if seeds is None else np.asarray(seeds)
+        if seeds.shape != (m,):
+            raise ValueError(f"need {m} seeds, got {seeds.shape}")
+        gens = []
+        for seed in seeds:
+            g = torch.Generator(device=dev)
+            g.manual_seed(int(seed))
+            gens.append(g)
+
+        vp0 = {name: torch.zeros((m, *info[name]["shape"]), device=dev)
+               for name in self.variables_to_propagate}
+        carry = (cma.stack_states(self.cma_state, m), vp0,
+                 torch.full((m,), math.inf, device=dev),
+                 torch.zeros((m, int(np.prod(gf_shape))), device=dev))
+
+        ckpt = FusedCheckpointer(checkpoint_path, "batched transform search",
+                                 every=checkpoint_every)
+        start = ckpt.resume({"carry": carry,
+                             "generators": [g.get_state() for g in gens]})
+        if ckpt.loaded is not None:
+            carry = ckpt.loaded["carry"]
+            for g, st in zip(gens, ckpt.loaded["generators"]):
+                g.set_state(st)
+
+        self.losses, self.gen_seconds = [], []
+        self.core.per_group_outputs = set(defaults)
+        try:
+            return self._batched_loop(carry, gens, defaults, start,
+                                      meta_steps, grad_steps,
+                                      last_grad_steps, ckpt)
+        finally:
+            self.core.per_group_outputs = set()
+
+    def _batched_loop(self, carry, gens, defaults, start, meta_steps,
+                      grad_steps, last_grad_steps, ckpt):
+        """The generations of :meth:`optimize_fused_batched` from ``start``
+        and its result."""
+        info = self.var_manager.variable_info
+        gf_shape = self._gf_var[2]
+        m = len(gens)
+
+        def carry_of(carry):
+            return {"carry": carry,
+                    "generators": [g.get_state() for g in gens]}
+
+        prev_min = None
+        for gi in range(start, meta_steps - 1):
+            t0 = time.perf_counter()
+            carry_in = carry_of(carry)
+            carry, (_, loss, _) = self._run_generation_batched(
+                carry, gens, defaults, gi, grad_steps, meta_steps, True)
+            cur_min = loss.min(dim=1).values
+            if prev_min is not None:
+                self.losses.append(to_numpy(prev_min))
+            prev_min = cur_min
+            ckpt.save(gi, carry_in)
+            self.gen_seconds.append(time.perf_counter() - t0)
+        if prev_min is not None:
+            self.losses.append(to_numpy(prev_min))
+
+        ckpt.finalize(meta_steps - 1, carry_of(carry))
+        t0 = time.perf_counter()
+        carry, (variables, loss, inner) = self._run_generation_batched(
+            carry, gens, defaults, meta_steps - 1, last_grad_steps,
+            meta_steps, False)
+        loss_np = to_numpy(loss)
+        self.losses.append(loss_np.min(axis=1))
+        self.gen_seconds.append(time.perf_counter() - t0)
+
+        states, vp_means, best_loss, best_t = carry
+        best = loss_np.argmin(axis=1)
+        targets = to_numpy(variables["output"]["target"]).reshape(
+            m, self.num_samples, *info["target"]["shape"])
+        return {
+            "candidate": to_numpy(best_t).reshape(m, *gf_shape),
+            "best_loss": to_numpy(best_loss),
+            "loss": loss_np,
+            "inner_loss": to_numpy(inner),
+            "candidate_out": targets[np.arange(m), best],
+            "variables": variables,
+            "cma_states": states,
+            "vp_means": vp_means,
+            "loss_curves": (np.stack(self.losses) if self.losses
+                            else np.zeros((0, m))),
+        }
 
     # -- the host-loop driver -------------------------------------------- #
 

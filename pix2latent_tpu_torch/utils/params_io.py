@@ -2,7 +2,8 @@
 
 ``pix2latent_tpu/utils/params_io.py:save_params_npz`` writes a nested
 parameter tree as ``/``-joined key paths ("generator/block_0/conv_0/kernel").
-This module reads that layout and maps it onto the port's modules, whose
+This module writes that layout (:func:`save_params_npz`), reads it and
+maps it onto the port's modules, whose
 parameter names follow the same paths with ``.`` for ``/``. How names and
 arrays change depends on the model's Flax conventions, so each convention is
 a :class:`Layout`:
@@ -22,6 +23,8 @@ a :class:`Layout`:
 
 from __future__ import annotations
 
+import os
+import tempfile
 from typing import Callable, Dict, NamedTuple, Tuple
 
 import numpy as np
@@ -39,8 +42,35 @@ def _flatten(tree, prefix=""):
                 f"key {k!r} contains the separator {_SEP!r}")
             out.update(_flatten(v, f"{prefix}{k}{_SEP}"))
         return out
+    if isinstance(tree, torch.Tensor):
+        tree = tree.detach().cpu().numpy()
     out[prefix[:-1]] = np.asarray(tree)
     return out
+
+
+def save_params_npz(path: str, params) -> Dict[str, Tuple[int, ...]]:
+    """Atomically write a parameter tree (nested dict, or flat with ``/``
+    paths) of numpy arrays to ``path`` in the layout of the JAX package's
+    ``save_params_npz``, which either package's ``load_params_npz`` reads.
+    Returns ``{key path: shape}``, the report the convert CLI prints."""
+    if any(isinstance(v, dict) for v in params.values()):
+        flat = _flatten(params)
+    else:
+        flat = {k: np.asarray(v.detach().cpu().numpy()
+                              if isinstance(v, torch.Tensor) else v)
+                for k, v in params.items()}
+    d = os.path.dirname(os.path.abspath(path)) or "."
+    os.makedirs(d, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=d, suffix=".tmp")
+    os.close(fd)
+    try:
+        with open(tmp, "wb") as f:
+            np.savez(f, **flat)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return {k: v.shape for k, v in flat.items()}
 
 
 def load_params_npz(path: str) -> Dict[str, np.ndarray]:

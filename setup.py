@@ -8,7 +8,8 @@ setup(
                  "optimization, transform search, BigGAN + StyleGAN2)"),
     packages=find_packages(exclude=("tests", "examples")),
     package_data={"pix2latent_tpu": ["utils/data/*.json.gz"],
-                  "pix2latent_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
+                  "pix2latent_tpu_torch": ["csrc/*.cu", "csrc/*.cuh",
+                                           "native/*.cpp"]},
     python_requires=">=3.10",
     install_requires=[
         "jax",

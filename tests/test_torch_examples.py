@@ -43,6 +43,18 @@ from pix2latent_tpu_torch.models import stylegan2 as S
 ROOT = Path(__file__).resolve().parents[1]
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread per test, the process's setting restored after:
+    with a thread per core in every test worker, the many small operations
+    of these runs wait on the other workers' threads, many times slower
+    than on one."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _jax_example():
     spec = importlib.util.spec_from_file_location(
         "ffhq_example", ROOT / "examples" / "invert_stylegan2_ffhq_basincma.py")
@@ -92,13 +104,6 @@ def test_flags_are_the_jax_examples_plus_device():
 def tiny_ffhq(monkeypatch):
     monkeypatch.setitem(S.StyleGAN2.MODELS, "ffhq", 64)
     monkeypatch.setattr(S, "channels_for", lambda res, cm=2: 8)
-
-
-@pytest.mark.parametrize("flag", ["--fp=x.png", "--mask_fp=m.png",
-                                  "--make_video"])
-def test_codec_options_are_not_ported_yet(tiny_ffhq, flag):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        ffhq.main(["--device", "cpu", "--smoke", "--no_recipe", flag])
 
 
 def test_fused_run_writes_results_and_resumes(tiny_ffhq, tmp_path, capsys):
@@ -256,22 +261,6 @@ def test_biggan_host_loop_run_writes_results(tiny_biggan, tmp_path):
     assert result["tracked/z"].shape == (2 * 5 + 10, 18, 128)
 
 
-@pytest.mark.parametrize("name", ["biggan.pth", "weights.npz"])
-def test_biggan_checkpoint_other_than_npz_is_not_ported_yet(tiny_biggan,
-                                                            tmp_path, name):
-    path = tmp_path / name
-    path.write_bytes(b"not a zip archive")
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        bg.main(["--device", "cpu", "--smoke", "--checkpoint", str(path)])
-
-
-@pytest.mark.parametrize("flag", ["--fp=x.png", "--mask_fp=m.png",
-                                  "--make_video"])
-def test_biggan_codec_options_are_not_ported_yet(flag):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        bg.main(["--device", "cpu", "--smoke", flag])
-
-
 # --------------------------------------------------------------------- #
 # BigGAN with the transform search                                        #
 # --------------------------------------------------------------------- #
@@ -318,11 +307,6 @@ def test_transform_example_runs_both_phases(tiny_biggan, tmp_path, capsys,
         assert np.isfinite(result["tell_min"]).all()
 
 
-def test_transform_example_mask_option_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tf_ex.main(["--device", "cpu", "--smoke", "--mask_fp=m.png"])
-
-
 def test_transform_example_needs_a_device_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -330,7 +314,7 @@ def test_transform_example_needs_a_device_without_cuda(monkeypatch):
 
 
 def test_transform_example_pre_aligns_to_a_mask():
-    # --mask_fp needs the codecs; its alignment is reached through the API
+    # the alignment of --mask_fp through the API, against the JAX package's
     from pix2latent_tpu.transform.utils import compute_pre_alignment
     mask = np.zeros((64, 64, 3), np.float32)
     mask[10:40, 20:60] = 1.0
