@@ -183,9 +183,35 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    inversion with un-warped tells 2 x 3 + 5 at population 18 (36 rows):
    exact K1 counts for each phase, finite losses, each search's last best
    tell below its first.
+16. ``ng_hybrid_path``: ``examples/invert_biggan_hybrid_nevergrad.main``
+   with ``--ng_method CMA --num_samples 18 --fused --resume``, float32, full
+   width, on the synthetic self-target, its 30 x 50 + 300 cut to
+   ``NG_HYBRID_SCHEDULE`` (3 x 50 + 100: a final run shorter than a
+   generation's 50 steps need not end below generation 0's best); then the
+   same command again, which must run no generation and no step (K1: the
+   target's forward and one evaluation). Checks: finite tell losses, the
+   final loss below generation 0's minimum, exact K1 f32 counts (3 x (50 +
+   1) + 100 forwards, one more for the target that ``load_target``
+   renders, and 3 x 50 + 100 backwards), one ``eigh`` sync inside each
+   fused generation.
+17. ``ng_evalonly_path``: ``examples/invert_biggan_nevergrad.main`` with
+   ``--ng_method TBPSA --num_samples 18 --fused``, float32, its 1000 + 300
+   cut to ``NG_EVAL_SCHEDULE`` (50 + 30). Checks: finite losses, a later
+   generation's minimum below generation 0's, exact K1 f32 counts (50 + 30
+   + 1 forwards, 30 backwards), and no host sync inside a generation
+   (TBPSA has no ``eigh``). Prints evaluations/s.
+18. ``cars_ng_path``: StyleGAN2-cars-512 in float32 at population 22, both
+   StyleGAN2 kernels on (``init="equalized"``, as ``sg2_path``), the problem
+   built by the cars entry points' functions (``load_target``,
+   ``register_stylegan2_vars``, ``cars_loss_mask``, ``make_loss``), driven
+   by ``HybridNevergradOptimizer("DiagonalCMA").optimize`` at
+   ``CARS_NG_SCHEDULE`` (2 x 10 + 30; the example: 30 x 50 + 300). Checks:
+   finite losses, the final below generation 0's minimum, exact K2 f32
+   (forward and adjoint, 7 levels) and K3 f32 (23 modulated convs) counts,
+   and no ``eigh``. Prints images/s and peak memory.
 
 Then a ``done`` line with the script's seconds, the ``{"kernels": [...]}``
-line (each K2 and K3 entry twice: at the cars path's shapes with
+line (each K2 and K3 entry three times: at the cars path's shapes with
 ``sg2_path``'s launches, and, ``_ffhq``, at the FFHQ path's with
 ``ffhq_path``'s; K1 four times: bfloat16 with ``main_path``'s launches,
 ``_f32``, float32 with ``biggan_f32_path``'s, ``_f32_transform_search`` at
@@ -194,7 +220,10 @@ the latent search's and ``_f32_real_input`` with ``real_input_path``'s;
 bfloat16 ``_batched`` at [36, 4096, 1024, 64, 256] with ``batched_path``'s,
 ``_transform_batched_search`` at [14, ...] and
 ``_transform_batched_latent`` at [36, ...] with
-``transform_batched_path``'s), the card's ``nvidia-smi`` line and the
+``transform_batched_path``'s; float32 ``_f32_hybrid_ng`` and
+``_f32_ng_eval`` at [18, ...] with ``ng_hybrid_path``'s and
+``ng_evalonly_path``'s; K2 and K3 a third time, ``_f32``, float32 at the
+cars shapes with ``cars_ng_path``'s), the card's ``nvidia-smi`` line and the
 result line.
 It exits non-zero, printing no result, without a CUDA device or without the
 package beside it.
@@ -262,6 +291,14 @@ BATCHED_LABELS = (153, 254, 1, 417)
 BATCHED_SCHEDULE = (3, GRAD_STEPS, 30)
 BATCHED = (BATCHED_MBS, 4096, 1024, 64, 256)    # K1 at a 36-row chunk
 TRANSFORM_BATCHED_SEARCH = (14, 4096, 1024, 64, 256)   # 2 searches x pop 7
+# the strategy-registry entry points, cut: the hybrid example's 30 x 50 +
+# 300 to 3 x 50 + 100 (with 30 final steps the final loss stayed above
+# generation 0's best after its 50 steps on the card: 0.000871 against
+# 0.000637), the eval-only example's 1000 + 300 to 50 + 30, and the cars
+# hybrid example's 30 x 50 + 300 to 2 x 10 + 30
+NG_HYBRID_SCHEDULE = (3, 50, 100)
+NG_EVAL_SCHEDULE = (50, 30)
+CARS_NG_SCHEDULE = (2, 10, 30)
 
 
 def emit(obj):
@@ -1575,7 +1612,6 @@ def phase_real_input_path(generations, final_steps):
     from pix2latent_tpu_torch.examples import \
         invert_biggan_basincma as ex
     from pix2latent_tpu_torch.models.biggan import BigGAN
-    from pix2latent_tpu_torch.ops import attention as A
     from pix2latent_tpu_torch.scripts import convert
     from pix2latent_tpu_torch.utils import image, png
 
@@ -1630,30 +1666,11 @@ def phase_real_input_path(generations, final_steps):
         # the entry point, on the files, at a shortened schedule
         save = tmp / "run"
         full = ex.schedule(argparse.Namespace(smoke=False))
-        ex_schedule, ex_driver = ex.schedule, ex.BasinCMAOptimizer
-        ex.schedule = lambda args: (generations, GRAD_STEPS, final_steps)
-        drivers = []
-
-        class Recorded(ex_driver):
-            def __init__(self, *a, **k):
-                super().__init__(*a, **k)
-                drivers.append(self)
-        ex.BasinCMAOptimizer = Recorded
-        try:
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            A.reset_launch_counts()
-            t0 = time.perf_counter()
-            with _RecordSyncs() as syncs:
-                ex.main(["--fp", fp, "--mask_fp", mask_fp, "--checkpoint",
-                         str(tmp / "biggan.npz"), "--fused", "--save_dir",
-                         str(save), "--device", "cuda"])
-            torch.cuda.synchronize()
-            seconds = time.perf_counter() - t0
-            counts = A.launch_counts()
-            peak = torch.cuda.max_memory_allocated()
-        finally:
-            ex.schedule, ex.BasinCMAOptimizer = ex_schedule, ex_driver
+        driver, counts, seconds, peak, syncs = _run_entry_point(
+            ex, "BasinCMAOptimizer", (generations, GRAD_STEPS, final_steps),
+            ["--fp", fp, "--mask_fp", mask_fp, "--checkpoint",
+             str(tmp / "biggan.npz"), "--fused", "--save_dir", str(save),
+             "--device", "cuda"])
         result = dict(np.load(save / "result.npz"))
         written = sorted(p.name for p in save.iterdir())
 
@@ -1688,7 +1705,7 @@ def phase_real_input_path(generations, final_steps):
 
     tell_mins = [float(v) for v in result["tell_min"]]
     final_min = float(result["loss"].min())
-    gen_seconds = drivers[0].gen_seconds
+    gen_seconds = driver.gen_seconds
     gen_s = statistics.mean(gen_seconds[1:] or gen_seconds)
     expect = {"fwd": generations * (GRAD_STEPS + 1) + final_steps,
               "bwd": generations * GRAD_STEPS + final_steps}
@@ -1951,6 +1968,282 @@ def phase_transform_batched_path():
     return counts1, latent_counts
 
 
+
+def _run_entry_point(ex, driver, sched, argv):
+    """``ex.main(argv)`` on the card with ``ex.schedule`` swapped for
+    ``sched`` and the driver class ``driver`` (an attribute of ``ex``)
+    recorded, K1's counters set to 0 just before and read just after, and
+    the host syncs recorded (:class:`_RecordSyncs`). Returns ``(driver
+    instance, K1 counts, seconds, peak bytes, syncs)``."""
+    import torch
+    from pix2latent_tpu_torch.ops import attention as A
+
+    ex_schedule, ex_driver = ex.schedule, getattr(ex, driver)
+    drivers = []
+
+    class Recorded(ex_driver):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            drivers.append(self)
+
+    ex.schedule = lambda args: sched
+    setattr(ex, driver, Recorded)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        A.reset_launch_counts()
+        t0 = time.perf_counter()
+        with _RecordSyncs() as syncs:
+            ex.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = A.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        ex.schedule = ex_schedule
+        setattr(ex, driver, ex_driver)
+    return drivers[0], counts, seconds, peak, syncs
+
+
+def phase_ng_hybrid_path():
+    """``examples/invert_biggan_hybrid_nevergrad.main`` with CMA, fused and
+    resumed; see the module docstring."""
+    import math
+    import tempfile
+
+    import numpy as np
+    from pix2latent_tpu_torch.examples import \
+        invert_biggan_hybrid_nevergrad as ex
+
+    gens, steps, final_steps = NG_HYBRID_SCHEDULE
+    full = ex.schedule(argparse.Namespace(smoke=False))
+    t_start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--ng_method", "CMA", "--num_samples", str(POP), "--fused",
+                "--resume", str(Path(tmp) / "run.npz"), "--save_dir",
+                str(Path(tmp) / "out"), "--device", "cuda"]
+        opt, counts, seconds, peak, syncs = _run_entry_point(
+            ex, "HybridNevergradOptimizer", NG_HYBRID_SCHEDULE, argv)
+        result = dict(np.load(Path(tmp) / "out" / "result.npz"))
+        # the same command again: everything is on disk
+        opt2, counts2, seconds2, _, _ = _run_entry_point(
+            ex, "HybridNevergradOptimizer", NG_HYBRID_SCHEDULE, argv)
+        again = dict(np.load(Path(tmp) / "out" / "result.npz"))
+
+    tell_mins = [float(v) for v in result["tell_min"]]
+    final_min = float(result["loss"].min())
+    gen_s = statistics.mean(opt.gen_seconds[1:] or opt.gen_seconds)
+    # one forward a step and a tell, one backward a step, and the forward
+    # of load_target's synthetic self-target (one sample) before the search
+    expect = {"fwd": gens * (steps + 1) + final_steps + 1,
+              "bwd": gens * steps + final_steps}
+    # the resumed run renders the target and evaluates its final population
+    expect_resume = {"fwd": 2, "bwd": 0}
+    eigh_site = _eigh_site()
+    in_gen = syncs.count(in_generation=True)
+    res = {
+        "phase": "ng_hybrid_path", "model": "biggan-deep-256",
+        "entry_point": ("pix2latent_tpu_torch/examples/"
+                        "invert_biggan_hybrid_nevergrad.py"),
+        "ng_method": "CMA", "strategy": type(opt.ng_strategy).__name__,
+        "channel_width": opt.model.generator.ch, "dtype": "float32",
+        "population": POP,
+        "driver": "optimize_fused", "generations": gens, "grad_steps": steps,
+        "final_steps": final_steps,
+        "schedule": (f"{gens} x {steps} + {final_steps} (the example: "
+                     f"{full[0]} x {full[1]} + {full[2]})"),
+        "seconds": seconds, "gen_seconds": opt.gen_seconds,
+        "seconds_per_generation": gen_s,
+        "images_per_sec": POP * steps / gen_s,
+        "peak_memory_bytes": peak,
+        "tell_min_per_generation": tell_mins, "final_min_loss": final_min,
+        "attention_launches": counts, "expected_launches": expect,
+        "syncs_in_fused_generations": in_gen,
+        "syncs_outside_generations": syncs.count(in_generation=False),
+        "resume": {"seconds": seconds2,
+                   "generations_run": len(opt2.gen_seconds),
+                   "attention_launches": counts2,
+                   "expected_launches": expect_resume,
+                   "variables_equal": bool(np.array_equal(
+                       again["variables/input/z"],
+                       result["variables/input/z"]))},
+        "phase_seconds": time.perf_counter() - t_start}
+    emit(res)
+    assert type(opt.ng_strategy).__name__ == "CMAStrategy"
+    assert res["channel_width"] == 128, res["channel_width"]
+    assert len(tell_mins) == gens
+    assert all(math.isfinite(v) for v in tell_mins), tell_mins
+    assert math.isfinite(final_min) and final_min < tell_mins[0], (
+        f"no convergence: first generation {tell_mins[0]}, final {final_min}")
+    assert counts == expect, (counts, expect)
+    assert in_gen == {eigh_site: gens}, in_gen
+    assert res["resume"]["generations_run"] == 0, res["resume"]
+    assert counts2 == expect_resume, (counts2, expect_resume)
+    assert res["resume"]["variables_equal"], res["resume"]
+    return counts
+
+
+def phase_ng_evalonly_path():
+    """``examples/invert_biggan_nevergrad.main`` with TBPSA, fused; see the
+    module docstring."""
+    import math
+    import tempfile
+
+    import numpy as np
+    from pix2latent_tpu_torch.examples import invert_biggan_nevergrad as ex
+
+    gens, final_steps = NG_EVAL_SCHEDULE
+    full = ex.schedule(argparse.Namespace(smoke=False))
+    t_start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        opt, counts, seconds, peak, syncs = _run_entry_point(
+            ex, "NevergradOptimizer", NG_EVAL_SCHEDULE,
+            ["--ng_method", "TBPSA", "--num_samples", str(POP), "--fused",
+             "--save_dir", str(Path(tmp) / "out"), "--device", "cuda"])
+        result = dict(np.load(Path(tmp) / "out" / "result.npz"))
+
+    tell_mins = [float(v) for v in result["tell_min"]]
+    final_min = float(result["loss"].min())
+    gen_s = statistics.mean(opt.gen_seconds[1:] or opt.gen_seconds)
+    # one forward a generation, one forward and backward a final step, and
+    # the forward of the synthetic self-target
+    expect = {"fwd": gens + final_steps + 1, "bwd": final_steps}
+    in_gen = syncs.count(in_generation=True)
+    res = {
+        "phase": "ng_evalonly_path", "model": "biggan-deep-256",
+        "entry_point": ("pix2latent_tpu_torch/examples/"
+                        "invert_biggan_nevergrad.py"),
+        "ng_method": "TBPSA", "strategy": type(opt.ng_strategy).__name__,
+        "channel_width": opt.model.generator.ch, "dtype": "float32",
+        "population": POP,
+        "driver": "optimize_fused", "generations": gens,
+        "final_steps": final_steps,
+        "schedule": (f"{gens} + {final_steps} (the example: {full[0]} + "
+                     f"{full[1]})"),
+        "seconds": seconds, "gen_seconds": opt.gen_seconds,
+        "seconds_per_generation": gen_s,
+        "evaluations_per_sec": POP / gen_s,
+        "peak_memory_bytes": peak,
+        "tell_min_per_generation": tell_mins,
+        "min_tell_loss": min(tell_mins), "final_min_loss": final_min,
+        "attention_launches": counts, "expected_launches": expect,
+        "syncs_in_fused_generations": in_gen,
+        "syncs_outside_generations": syncs.count(in_generation=False),
+        "phase_seconds": time.perf_counter() - t_start}
+    emit(res)
+    assert type(opt.ng_strategy).__name__ == "TBPSAStrategy"
+    assert res["channel_width"] == 128, res["channel_width"]
+    assert len(tell_mins) == gens
+    assert all(math.isfinite(v) for v in tell_mins), tell_mins
+    assert math.isfinite(final_min)
+    assert min(tell_mins[1:]) < tell_mins[0], tell_mins
+    assert counts == expect, (counts, expect)
+    # TBPSA has no eigh: nothing inside a generation waits for the card
+    assert in_gen == {}, in_gen
+    return counts
+
+
+def phase_cars_ng_path():
+    """StyleGAN2-cars-512 in float32 through the hybrid driver's host loop
+    with DiagonalCMA; see the module docstring."""
+    import math
+    import warnings
+
+    import torch
+    from pix2latent_tpu_torch.examples import common
+    from pix2latent_tpu_torch.examples import \
+        invert_stylegan2_cars_hybrid_ng as ex
+    from pix2latent_tpu_torch.models.stylegan2 import (StyleGAN2,
+                                                       modulated_conv_inputs)
+    from pix2latent_tpu_torch.ops import fir_blur as FB
+    from pix2latent_tpu_torch.ops import mod_backward as MB
+    from pix2latent_tpu_torch.optimizers import HybridNevergradOptimizer
+
+    gens, steps, final_steps = CARS_NG_SCHEDULE
+    full = ex.schedule(argparse.Namespace(smoke=False))
+    t_start = time.perf_counter()
+    args = ex.parser().parse_args(["--ng_method", "DiagonalCMA",
+                                   "--num_samples", str(SG2_POP),
+                                   "--device", "cuda"])
+    args.grad_free = True
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")       # random-init notices
+        model = StyleGAN2("cars", search="z", dtype=torch.float32, seed=0,
+                          init="equalized", fused_mod_bwd=True,
+                          fir_kernel=True, device="cuda")
+    model, vm = common.stylegan2_problem(args, model=model)
+    opt = HybridNevergradOptimizer(args.ng_method, model, vm,
+                                   common.make_loss(args),
+                                   max_batch_size=args.max_minibatch,
+                                   device="cuda")
+    dtypes = {m.dtype for m in model.generator.modules()
+              if isinstance(getattr(m, "dtype", None), torch.dtype)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    FB.reset_launch_counts()
+    MB.reset_launch_counts()
+    t0 = time.perf_counter()
+    with _RecordSyncs() as syncs:
+        variables, outs, final = opt.optimize(
+            num_samples=SG2_POP, meta_steps=gens, grad_steps=steps,
+            last_grad_steps=final_steps)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = _kernel_counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    # each forward (an inner step, a tell, a final step) blurs once at each
+    # up level, each backward runs the adjoint blurs and one modulation
+    # backward per modulated conv
+    levels = len(sg2_blur_levels(model.im_res))
+    convs = len(modulated_conv_inputs(model.im_res, SG2_POP))
+    forwards = gens * (steps + 1) + final_steps
+    backwards = gens * steps + final_steps
+    expect = {"fir_blur_fwd": levels * forwards,
+              "fir_blur_bwd": levels * backwards,
+              "mod_backward": convs * backwards}
+    tell_mins = opt.losses
+    final_min = float(final[0][1]["loss"].min())
+    gen_s = statistics.mean(opt.gen_seconds[1:] or opt.gen_seconds)
+    eigh_site = _eigh_site()
+    sites = {site for site, _, _ in syncs.sites}
+    res = {
+        "phase": "cars_ng_path", "model": "stylegan2-cars-512",
+        "entry_point_functions": (
+            "pix2latent_tpu_torch/examples/common.py: stylegan2_problem "
+            "(load_target, register_stylegan2_vars, cars_loss_mask), "
+            "make_loss"),
+        "ng_method": "DiagonalCMA", "strategy": type(opt.ng_strategy).__name__,
+        "channel_multiplier": 2, "dtype": "float32", "population": SG2_POP,
+        "driver": "optimize", "generations": gens, "grad_steps": steps,
+        "final_steps": final_steps,
+        "schedule": (f"{gens} x {steps} + {final_steps} (the example: "
+                     f"{full[0]} x {full[1]} + {full[2]})"),
+        "max_batch_size": opt.max_batch_size,
+        "seconds": seconds, "gen_seconds": opt.gen_seconds,
+        "seconds_per_generation": gen_s,
+        "images_per_sec": SG2_POP * steps / gen_s,
+        "peak_memory_bytes": peak,
+        "tell_min_per_generation": tell_mins, "final_min_loss": final_min,
+        "blur_levels": levels, "modulated_convs": convs,
+        "launches": counts, "expected_launches": expect,
+        "host_syncs": len(syncs.sites), "eigh_syncs": sum(
+            1 for site, _, _ in syncs.sites if site == eigh_site),
+        "phase_seconds": time.perf_counter() - t_start}
+    emit(res)
+    assert dtypes == {torch.float32}, dtypes
+    assert type(opt.ng_strategy).__name__ == "DiagonalCMAStrategy"
+    assert tuple(opt.out.shape) == (SG2_POP, 512, 512, 3), opt.out.shape
+    assert bool(torch.isfinite(opt.out).all())
+    assert len(tell_mins) == gens
+    assert all(math.isfinite(v) for v in tell_mins), tell_mins
+    assert math.isfinite(final_min) and final_min < tell_mins[0], (
+        f"no convergence: first generation {tell_mins[0]}, final {final_min}")
+    assert (levels, convs) == (7, 23)
+    assert counts == expect, (counts, expect)
+    assert eigh_site not in sites, sites
+    return counts
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     # the flagship's 30 generations + 300 final steps cut to 20 + 100, and
@@ -2003,6 +2296,9 @@ def main(argv=None):
                                         args.biggan_final_steps)
     batched_counts = phase_batched_path(main_images_per_sec)
     tb_search_counts, tb_latent_counts = phase_transform_batched_path()
+    hybrid_ng_counts = phase_ng_hybrid_path()
+    eval_ng_counts = phase_ng_evalonly_path()
+    cars_ng_counts = phase_cars_ng_path()
 
     def timed(kernel, path, dtype="bfloat16", shape=FLAGSHIP):
         """The timed case at the path's shape."""
@@ -2040,6 +2336,12 @@ def main(argv=None):
              "_transform_batched_latent", tb_latent_counts,
              "sagan_attention.cu",
              {"fwd": "attention.py:131", "bwd": "attention.py:154"}),
+            ("sagan_attention", "ng_hybrid", "_f32_hybrid_ng",
+             hybrid_ng_counts, "sagan_attention.cu",
+             {"fwd": "attention.py:131", "bwd": "attention.py:154"}),
+            ("sagan_attention", "ng_eval", "_f32_ng_eval", eval_ng_counts,
+             "sagan_attention.cu",
+             {"fwd": "attention.py:131", "bwd": "attention.py:154"}),
             ("fir_blur", "main", "", {"fwd": sg2_counts["fir_blur_fwd"],
                                       "bwd": sg2_counts["fir_blur_bwd"]},
              "fir_blur.cu", {"fwd": "pallas_fir.py:108",
@@ -2048,11 +2350,17 @@ def main(argv=None):
              {"fwd": ffhq_counts["fir_blur_fwd"],
               "bwd": ffhq_counts["fir_blur_bwd"]},
              "fir_blur.cu", {"fwd": "pallas_fir.py:108",
+                             "bwd": "pallas_fir.py:108"}),
+            ("fir_blur", "cars_ng", "_f32",
+             {"fwd": cars_ng_counts["fir_blur_fwd"],
+              "bwd": cars_ng_counts["fir_blur_bwd"]},
+             "fir_blur.cu", {"fwd": "pallas_fir.py:108",
                              "bwd": "pallas_fir.py:108"})):
         if path == "transform_search":          # pop 7
             case = timed(kernel, "main", "float32", TRANSFORM_SEARCH)
-        elif path in ("biggan_f32_path", "transform_latent",
-                      "real_input"):            # pop 18
+        elif path in ("biggan_f32_path", "transform_latent", "real_input",
+                      "ng_hybrid", "ng_eval",               # K1 f32, pop 18
+                      "cars_ng"):               # K2 f32 at the cars shape
             case = timed(kernel, "main", "float32")
         elif path in ("batched", "transform_batched_latent"):   # 36 rows
             case = timed(kernel, "main", "bfloat16", BATCHED)
@@ -2073,9 +2381,11 @@ def main(argv=None):
                 "bound_ms": case[f"{key}_bound_ms"],
                 "bound_by": case[f"{key}_bound_by"],
                 "library_ms": case[f"library_{key}_ms"], **extra})
-    for path, suffix, launches in (("main", "", sg2_counts),
-                                   ("ffhq_path", "_ffhq", ffhq_counts)):
-        case = timed("mod_backward", path)
+    for path, suffix, launches, dtype in (
+            ("main", "", sg2_counts, "bfloat16"),
+            ("ffhq_path", "_ffhq", ffhq_counts, "bfloat16"),
+            ("main", "_f32", cars_ng_counts, "float32")):
+        case = timed("mod_backward", path, dtype)
         kernels.append({
             "name": f"mod_backward{suffix}", "route": "cuda",
             "source": "pix2latent_tpu_torch/csrc/mod_backward.cu",

@@ -209,6 +209,21 @@ def cars_loss_mask(im=512, model="cars"):
     return m
 
 
+def stylegan2_problem(args, model=None):
+    """``(model, var_manager)`` of the StyleGAN2 entry points:
+    :func:`load_stylegan2` (or ``model``, when given), the target and weight
+    of :func:`load_target`, and :func:`register_stylegan2_vars` with the
+    cars border mask for ``--model cars``."""
+    from pix2latent_tpu_torch import VariableManager
+    if model is None:
+        model = load_stylegan2(args)
+    target, weight = load_target(args, model)
+    vm = register_stylegan2_vars(
+        VariableManager(device=args.device), model, args, target, weight,
+        loss_mask=cars_loss_mask(model.im_res, args.model))
+    return model, vm
+
+
 def make_loss(args, net="alex"):
     """ProjectionLoss: masked L1 + 10 x LPIPS (``net``: alex, vgg16 or
     squeeze)."""

@@ -1,0 +1,57 @@
+"""StyleGAN2 LSUN-Cars CMA-ES inversion with an Adam finetune (counterpart
+of the JAX package's ``examples/invert_stylegan2_cars_cma.py``): 200
+eval-only CMA generations of population 22, then 300 Adam steps on a final
+ask, the 512x512 padded target under the cars border mask.
+
+The generator runs in float32 unless ``--bf16``; its hand-written kernel
+flags stay at their defaults (off), as in the JAX example. ``--search w+``
+searches the w latent and the noise maps. ``--fused`` drives
+``optimize_fused``, ``--resume PATH`` checkpoints the run there and resumes
+it from there, ``--smoke`` runs 3 generations and 8 steps. ``--device cpu``
+runs the plain PyTorch paths.
+
+    python -m pix2latent_tpu_torch.examples.invert_stylegan2_cars_cma \\
+        [--search w+] [--smoke] [--fused] [--resume PATH] [--device cpu]
+"""
+
+from __future__ import annotations
+
+from pix2latent_tpu_torch.examples.common import (base_parser, finish,
+                                                  make_loss,
+                                                  stylegan2_problem)
+from pix2latent_tpu_torch.optimizers import CMAOptimizer
+
+
+def parser():
+    p = base_parser(__doc__, model="stylegan2")
+    p.add_argument("--fused", action="store_true",
+                   help="one function per eval-only generation, reading "
+                        "nothing back")
+    p.add_argument("--resume", type=str, default=None,
+                   help="checkpoint path for crash-safe resume")
+    return p
+
+
+def schedule(args):
+    """(generations, finetune steps)."""
+    return (3, 8) if args.smoke else (200, 300)
+
+
+def main(argv=None):
+    args = parser().parse_args(argv)
+    args.grad_free = True
+    model, vm = stylegan2_problem(args)
+    opt = CMAOptimizer(model, vm, make_loss(args), log=args.make_video,
+                       max_batch_size=args.max_minibatch, device=args.device)
+    opt.log_resize_factor = 0.5
+    meta, grad = schedule(args)
+    drive = opt.optimize_fused if args.fused else opt.optimize
+    variables, outs, losses = drive(meta_steps=meta, grad_steps=grad,
+                                    active=args.active_cma,
+                                    checkpoint_path=args.resume)
+    return finish(args, opt, variables, outs, losses,
+                  f"./results/stylegan2_{args.model}/cma")
+
+
+if __name__ == "__main__":
+    main()

@@ -9,13 +9,8 @@ samples keyed to the asked candidates. A final population then runs
 
 from __future__ import annotations
 
-import time
-
 from pix2latent_tpu_torch.optimizers.base import _BaseOptimizer
 from pix2latent_tpu_torch.optimizers.cma_base import _BaseCMAOptimizer
-from pix2latent_tpu_torch.utils.checkpoint import (LoopCheckpointer,
-                                                   final_checkpoint)
-from pix2latent_tpu_torch.utils.misc import Timer, cprint
 
 
 class BasinCMAOptimizer(_BaseOptimizer, _BaseCMAOptimizer):
@@ -43,16 +38,10 @@ class BasinCMAOptimizer(_BaseOptimizer, _BaseCMAOptimizer):
         draws of the uninterrupted one. ``progress_every`` prints the tell
         loss every k generations. Returns ``(variables, outs, losses)``."""
         self.setup_cma(self.var_manager, popsize=popsize, active=active)
-        self.losses, self.outs, self.gen_seconds = [], [], []
-        ran = self._fused_meta_loop(self._get_fused_gen(grad_steps),
-                                    meta_steps, "basin-cma fused",
-                                    checkpoint_path, checkpoint_every,
-                                    progress_every)
-        variables = self._fused_final(
-            last_grad_steps, meta_steps * grad_steps,
-            final_checkpoint(checkpoint_path, ran), checkpoint_every)
-        return self._final_results(variables,
-                                   meta_steps * grad_steps + last_grad_steps)
+        return self._fused_run(meta_steps, grad_steps, last_grad_steps,
+                               meta_steps * grad_steps, "basin-cma fused",
+                               checkpoint_path, checkpoint_every,
+                               progress_every)
 
     def optimize(self, meta_steps, grad_steps, last_grad_steps=300,
                  pbar=None, num_samples=None, popsize=None,
@@ -71,34 +60,6 @@ class BasinCMAOptimizer(_BaseOptimizer, _BaseCMAOptimizer):
             raise ValueError("the CMA optimizer has a fixed sample size; "
                              "set popsize instead")
         self.setup_cma(self.var_manager, popsize=popsize, active=active)
-        self.losses, self.outs, self.gen_seconds = [], [], []
-        total_steps = meta_steps * grad_steps + last_grad_steps
-        timer = Timer()
-        ckpt = LoopCheckpointer(checkpoint_path, self, "cma_state",
-                                every=checkpoint_every)
-        start = ckpt.resume()
-        progress = dict(pbar=pbar, total_steps=total_steps, timer=timer)
-
-        for gi in range(start, meta_steps):
-            t0 = time.perf_counter()
-            loss, _ = self.refine_and_tell(self.cma_init(self.var_manager),
-                                           grad_steps, gi, progress)
-            if not self.log:
-                self.losses.append(float(loss.min()))
-            self.gen_seconds.append(time.perf_counter() - t0)
-            ckpt.save(gi + 1)
-            if progress_every and (gi + 1) % progress_every == 0:
-                cprint(f"(basin-cma) gen {gi + 1}/{meta_steps} min tell loss "
-                       f"{float(loss.min()):.4f} ({self.gen_seconds[-1]:.3f} "
-                       "s/gen)", "c")
-
-        # final population: Adam only, no tell
-        variables = self.cma_init(self.var_manager)
-        variables = self.core.apply_transforms(variables)
-        variables, optimizer = self.core.init_opt_state(variables)
-        variables, _, _, _ = self._run_inner(
-            variables, optimizer, last_grad_steps, meta_steps * grad_steps,
-            checkpoint_path=final_checkpoint(checkpoint_path,
-                                             start < meta_steps),
-            checkpoint_every=checkpoint_every, **progress)
-        return self._final_results(variables, total_steps)
+        return self._hybrid_loop(meta_steps, grad_steps, last_grad_steps,
+                                 pbar, checkpoint_path, checkpoint_every,
+                                 progress_every, "basin-cma")

@@ -7,9 +7,6 @@ from __future__ import annotations
 
 from pix2latent_tpu_torch.optimizers.base import _BaseOptimizer
 from pix2latent_tpu_torch.optimizers.cma_base import _BaseCMAOptimizer
-from pix2latent_tpu_torch.utils.checkpoint import (LoopCheckpointer,
-                                                   final_checkpoint)
-from pix2latent_tpu_torch.utils.misc import Timer, progress_print, to_numpy
 
 
 class CMAOptimizer(_BaseOptimizer, _BaseCMAOptimizer):
@@ -33,14 +30,9 @@ class CMAOptimizer(_BaseOptimizer, _BaseCMAOptimizer):
         generation behind; ``checkpoint_path`` makes the meta loop and the
         finetune resumable. Returns ``(variables, outs, losses)``."""
         self.setup_cma(self.var_manager, popsize=popsize, active=active)
-        self.losses, self.outs, self.gen_seconds = [], [], []
-        ran = self._fused_meta_loop(self._get_fused_gen(0), meta_steps,
-                                    "cma fused", checkpoint_path,
-                                    checkpoint_every, progress_every)
-        variables = self._fused_final(
-            grad_steps, meta_steps, final_checkpoint(checkpoint_path, ran),
-            checkpoint_every)
-        return self._final_results(variables, meta_steps + grad_steps)
+        return self._fused_run(meta_steps, 0, grad_steps, meta_steps,
+                               "cma fused", checkpoint_path, checkpoint_every,
+                               progress_every)
 
     def optimize(self, meta_steps, grad_steps=0, pbar=None, num_samples=None,
                  popsize=None, checkpoint_path=None, checkpoint_every=1,
@@ -56,37 +48,5 @@ class CMAOptimizer(_BaseOptimizer, _BaseCMAOptimizer):
             raise ValueError("the CMA optimizer has a fixed sample size; "
                              "set popsize instead")
         self.setup_cma(self.var_manager, popsize=popsize, active=active)
-        self.losses, self.outs = [], []
-        total_steps = meta_steps + grad_steps
-        timer = Timer()
-        ckpt = LoopCheckpointer(checkpoint_path, self, "cma_state",
-                                every=checkpoint_every)
-        start = ckpt.resume()
-        for i in range(start, meta_steps):
-            variables = self.cma_init(self.var_manager)
-            self.out, loss = self.core.eval(variables, self.generator, i)
-            self.loss = to_numpy(loss)
-            if self.log and (i + 1) % self.log_iter == 0:
-                self.log_result(variables, i + 1)
-            tell = self.cma_update(variables, step=i)
-            if not self.log:
-                self.losses.append(float(tell.min()))
-            ckpt.save(i + 1)
-            if pbar is not None:
-                pbar.progress((i + 1) / total_steps)
-            elif (i + 1) % self.show_iter == 0:
-                progress_print("optimize", i + 1, total_steps, "c",
-                               timer.avg(self.show_iter))
-                timer.reset()
-
-        # Adam finetune of a final ask
-        variables = self.cma_init(self.var_manager)
-        variables = self.core.apply_transforms(variables)
-        variables, optimizer = self.core.init_opt_state(variables)
-        variables, _, _, _ = self._run_inner(
-            variables, optimizer, grad_steps, start_step=meta_steps,
-            pbar=pbar, total_steps=total_steps, timer=timer,
-            checkpoint_path=final_checkpoint(checkpoint_path,
-                                             start < meta_steps),
-            checkpoint_every=checkpoint_every)
-        return self._final_results(variables, total_steps)
+        return self._eval_loop(meta_steps, grad_steps, pbar, checkpoint_path,
+                               checkpoint_every)

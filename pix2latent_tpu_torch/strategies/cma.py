@@ -241,3 +241,44 @@ def refresh_eigen(state: CMAState) -> CMAState:
     """Recompute the cached eigendecomposition of C."""
     eigvals, B = torch.linalg.eigh(state.C)
     return state._replace(B=B, D=torch.sqrt(torch.clamp(eigvals, min=1e-20)))
+
+
+class CMA:
+    """Stateful wrapper with the reference's ``CMA`` interface
+    (``batch_size`` / ``ask`` / ``tell`` / ``mean``; counterpart of the JAX
+    package's ``strategies.cma.CMA``). The state stays on ``device`` between
+    calls; the draws come from a ``torch.Generator`` seeded with ``seed``
+    (0 when None)."""
+
+    def __init__(self, mu=None, sigma: float = 1.0, seed: Optional[int] = None,
+                 popsize: Optional[int] = None, active: bool = False,
+                 device="cuda"):
+        from pix2latent_tpu_torch.utils.device import resolve_device
+        device = resolve_device(device)
+        if mu is None:
+            mu = np.zeros(128, dtype=np.float32)
+        self.params, self.state = init(mu, sigma, popsize, active=active,
+                                       device=device)
+        self._generator = torch.Generator(device=device)
+        self._generator.manual_seed(0 if seed is None else int(seed))
+        self._device = device
+
+    def batch_size(self) -> int:
+        return self.params.popsize
+
+    def ask(self, batch_size=None) -> torch.Tensor:
+        if batch_size is not None and batch_size != self.params.popsize:
+            raise ValueError("popsize is fixed at init; pass popsize= to the "
+                             "constructor")
+        self._x = ask(self.params, self.state, self._generator)
+        return self._x
+
+    def tell(self, x, y):
+        def f32(a):
+            return torch.as_tensor(a if isinstance(a, torch.Tensor)
+                                   else np.asarray(a), dtype=torch.float32,
+                                   device=self._device)
+        self.state = tell(self.params, self.state, f32(x), f32(y))
+
+    def mean(self):
+        return self.state.mean
