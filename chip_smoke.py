@@ -16,7 +16,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    it and at a small ragged shape:
    - the SA-GAN attention (K1), forward and backward, at the
      BigGAN-deep-256 and BigGAN-deep-128 shapes (in float32 also at the
-     transform search's population 7, [7, 4096, 1024, 64, 256]), with the
+     transform search's population 7, [7, 4096, 1024, 64, 256], and at
+     the editor's one sample, [1, 4096, 1024, 64, 256]), with the
      tolerances of
      ``tests/test_attention.py``, in both routes (bfloat16: ``design``
      ``tensor-core``; float32: ``3xtf32``, each f32 product as three TF32
@@ -122,7 +123,11 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    ``shortened``). K1's counters are set to 0 just before and read just
    after: one forward per inner step and per tell, one backward per inner
    step. Prints images/s, seconds per generation, peak memory, the tell
-   losses and K1's share of a step (from the ``kernels`` times).
+   losses and K1's share of a step (from the ``kernels`` times). Then the
+   entry point's ``finish`` writes the results (``vars.npy``,
+   ``result.npz``) to a directory of the run, beside the weights
+   (``save_params_npz``) and the best sample rendered with its population,
+   for ``edit_path``.
 11. ``transform_path``: the two phases of the BigGAN transform entry point
    (``pix2latent_tpu_torch/examples/invert_biggan_with_transform.py``),
    built by its own functions, BigGAN-deep-256 at full width in float32:
@@ -200,15 +205,48 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    generation's minimum below generation 0's, exact K1 f32 counts (50 + 30
    + 1 forwards, 30 backwards), and no host sync inside a generation
    (TBPSA has no ``eigh``). Prints evaluations/s.
-18. ``cars_ng_path``: StyleGAN2-cars-512 in float32 at population 22, both
-   StyleGAN2 kernels on (``init="equalized"``, as ``sg2_path``), the problem
-   built by the cars entry points' functions (``load_target``,
-   ``register_stylegan2_vars``, ``cars_loss_mask``, ``make_loss``), driven
+18. ``cars_ng_path``: StyleGAN2-cars-512 in float32 at population 22: the
+   ``init="equalized"`` weights of seed 0 (as ``sg2_path``'s) saved by
+   ``save_params_npz`` and given as ``--checkpoint``, so the model comes from
+   the cars entry points' ``load_stylegan2``, which turns both StyleGAN2
+   kernels on for a CUDA device; the problem built by their functions
+   (``stylegan2_problem``: ``load_target``, ``register_stylegan2_vars``,
+   ``cars_loss_mask``; ``make_loss``), driven
    by ``HybridNevergradOptimizer("DiagonalCMA").optimize`` at
    ``CARS_NG_SCHEDULE`` (2 x 10 + 30; the example: 30 x 50 + 300). Checks:
-   finite losses, the final below generation 0's minimum, exact K2 f32
-   (forward and adjoint, 7 levels) and K3 f32 (23 modulated convs) counts,
-   and no ``eigh``. Prints images/s and peak memory.
+   finite losses, the final below generation 0's minimum, both kernel
+   flags on in every layer, exact K2 f32 (forward and adjoint, 7 levels)
+   and K3 f32 (23 modulated convs) counts, and no ``eigh``. Prints images/s
+   and peak memory.
+19. ``ffhq_entry_path``: ``examples/invert_stylegan2_ffhq_basincma.main``
+   under its recipe (bfloat16, remat from 256, microbatches of 2) on the
+   equalized FFHQ-1024 weights of seed 0 as ``--checkpoint``, full width,
+   population 22, its 30 x 30 + 300 cut to ``FFHQ_ENTRY_SCHEDULE`` (1 x 10
+   + 50: with 10 final steps the final loss stayed above generation 0's
+   best). Checks: K2 and K3 on in every layer (``load_stylegan2`` on the
+   card), finite losses, the final below generation 0's minimum, exact K2
+   bf16 forward and adjoint and K3 bf16 counts from
+   :func:`ffhq_expected_launches` (plus the target's forward).
+20. ``edit_path``: ``examples/edit_biggan.main`` on ``biggan_f32_path``'s
+   ``vars.npy`` with its weights as ``--checkpoint``, BigGAN-deep-256 in
+   float32 at the reference's GANSpace defaults (12,800 PCA samples, 32
+   components). Checks: ``default()`` (n = 1) within rel 1e-3 of the best
+   sample rendered with its population (n = 18); the components finite and
+   unit-norm, and, sign-aligned, each within ``EDIT_COMPONENT_ATOL`` of the
+   same draws through the same function on the CPU, a bound that grows as
+   the inverse of the component's relative gap to its nearest singular
+   value below ``EDIT_GAP``; the class and z edits apart
+   from the default; K1 f32 launches exactly 3 forwards, one per image.
+   Prints the PCA's seconds and the card's peak memory.
+21. ``pack_pairs_step``: one StyleGAN2-cars-512 step (generator forward at
+   population 22, ``sum(out ** 2)``, the z gradient) with K2 on and
+   ``fused_mod_bwd`` off, once with ``pack_pairs_max_ch=64`` (the 512
+   level packed) and once without, in bfloat16 (timed, median of CUDA
+   events) and in float32. Checks: float32 outputs and z gradients within
+   ``tests/test_stylegan2.py``'s packing tolerances (rtol 2e-4, atol 2e-4;
+   1e-4 of the largest gradient), bfloat16 within rel 2e-2 (each layer's
+   bf16 rounding meets a different summation order), equal K2 counts and
+   no K3 launch.
 
 Then a ``done`` line with the script's seconds, the ``{"kernels": [...]}``
 line (each K2 and K3 entry three times: at the cars path's shapes with
@@ -222,18 +260,22 @@ bfloat16 ``_batched`` at [36, 4096, 1024, 64, 256] with ``batched_path``'s,
 ``_transform_batched_latent`` at [36, ...] with
 ``transform_batched_path``'s; float32 ``_f32_hybrid_ng`` and
 ``_f32_ng_eval`` at [18, ...] with ``ng_hybrid_path``'s and
-``ng_evalonly_path``'s; K2 and K3 a third time, ``_f32``, float32 at the
-cars shapes with ``cars_ng_path``'s), the card's ``nvidia-smi`` line and the
-result line.
+``ng_evalonly_path``'s; ``_f32_edit``, the forward alone, at [1, ...] with
+``edit_path``'s; K2 and K3 a third time, ``_f32``, float32 at the cars
+shapes with ``cars_ng_path``'s, which ``load_stylegan2`` built: each K2 and
+K3 entry names its loader in ``launched_by``), the card's ``nvidia-smi``
+line and the result line.
 It exits non-zero, printing no result, without a CUDA device or without the
 package beside it.
 """
 
 import argparse
 import json
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -250,6 +292,7 @@ PEAK_BYTES = 3.35e12
 
 FLAGSHIP = (18, 4096, 1024, 64, 256)   # n, q, k, d, dv at 256 px, pop 18
 TRANSFORM_SEARCH = (7, 4096, 1024, 64, 256)  # the same at the search's pop 7
+EDIT = (1, 4096, 1024, 64, 256)        # the editor's renders, one sample
 BIGGAN128 = (18, 4096, 1024, 32, 128)  # the same at 128 px
 RAGGED = (3, 100, 37, 5, 20)
 # (atol = rtol) for the output and for the gradients, tests/test_attention.py
@@ -299,6 +342,35 @@ TRANSFORM_BATCHED_SEARCH = (14, 4096, 1024, 64, 256)   # 2 searches x pop 7
 NG_HYBRID_SCHEDULE = (3, 50, 100)
 NG_EVAL_SCHEDULE = (50, 30)
 CARS_NG_SCHEDULE = (2, 10, 30)
+# the FFHQ entry point's 30 x 30 + 300, cut to 1 x 10 + 50: after 10 final
+# steps the final loss stayed above generation 0's best on the card (0.567
+# against 0.467); after 30 and 50 it was below (0.349 against 0.452, 0.280
+# against 0.540)
+FFHQ_ENTRY_SCHEDULE = (1, 10, 50)
+# the edit example's GANSpace defaults (the reference's): feature rows and
+# components. The card's components against the CPU's on the same draws,
+# sign-aligned: component i within EDIT_COMPONENT_ATOL x max(1, EDIT_GAP /
+# its relative gap to the nearest other singular value). Rounding turns a
+# component within its near-degenerate neighbour's plane by about the
+# rounding error over the gap (Davis-Kahan): both float32 runs stood
+# 1.1e-3 to 1.7e-3 off float64 at a pair 3.6e-5 apart, and within 6.8e-4
+# of each other at gaps of 5e-4 and more.
+EDIT_PCA = (12800, 32)
+EDIT_COMPONENT_ATOL = 1e-3
+EDIT_GAP = 1e-3
+# pack_pairs_step: the thin-channel limit that packs cars' 512 level (64
+# channels), and the timed repetitions of its step
+PACK_MAX_CH = 64
+PACK_REPS = 10
+
+
+# where the K2 and K3 launches of the kernels line come from: the model's
+# loader in each phase
+LAUNCHED_BY = {
+    "main": "sg2_path (utils/flagship.build_stylegan2)",
+    "ffhq_path": "ffhq_path (utils/flagship.build_ffhq)",
+    "cars_ng": ("cars_ng_path (examples/common.load_stylegan2, the cars "
+                "entry points' loader)")}
 
 
 def emit(obj):
@@ -772,6 +844,7 @@ def phase_kernels():
         cases.append(_attention_case(BIGGAN128, dtype, timed=True))
         if dtype == torch.float32:
             cases.append(_attention_case(TRANSFORM_SEARCH, dtype, timed=True))
+            cases.append(_attention_case(EDIT, dtype, timed=True))
         else:
             cases.append(_attention_case(BATCHED, dtype, timed=True))
             cases.append(_attention_case(TRANSFORM_BATCHED_SEARCH, dtype,
@@ -975,8 +1048,10 @@ def phase_sg2_whole_step():
                 {"z": torch.randn(2, 512, generator=gen)})
 
 
-def ffhq_expected_launches(generations, final_steps, chunks):
-    """K2 and K3 launches of ``ffhq_path``, counted from the code: a step,
+def ffhq_expected_launches(generations, final_steps, chunks,
+                           steps=GRAD_STEPS):
+    """K2 and K3 launches of ``ffhq_path`` (generations of ``steps`` inner
+    steps), counted from the code: a step,
     a tell and a final step run the population in ``chunks`` microbatches.
     Per chunk, a forward blurs once per up-conv (8 levels, r = 8 .. 1024);
     a backward runs the 8 adjoint blurs, recomputes the forward of the
@@ -985,8 +1060,8 @@ def ffhq_expected_launches(generations, final_steps, chunks):
     per modulated conv: 26 (conv1, to_rgb1, and at each of the 8 levels the
     up-conv, the conv and to_rgb). A tell forward runs without gradients:
     no recompute, no backward."""
-    backwards = chunks * (generations * GRAD_STEPS + final_steps)
-    forwards = chunks * (generations * (GRAD_STEPS + 1) + final_steps)
+    backwards = chunks * (generations * steps + final_steps)
+    forwards = chunks * (generations * (steps + 1) + final_steps)
     return {"fir_blur_fwd": 8 * forwards + 3 * backwards,
             "fir_blur_bwd": 8 * backwards, "mod_backward": 26 * backwards}
 
@@ -1184,19 +1259,26 @@ def phase_ffhq_whole_step():
                 {"z": torch.randn(2, 512, generator=gen)})
 
 
-def phase_biggan_f32_path(generations, final_steps, cases):
+def phase_biggan_f32_path(generations, final_steps, cases, save_dir):
     """The BigGAN BasinCMA entry point's problem in float32, so K1 takes its
-    float32 route; see the module docstring."""
+    float32 route; see the module docstring. The results go to
+    ``save_dir`` through the entry point's ``finish``, beside the weights
+    (``weights.npz``) and the best sample rendered with the population
+    (``best_render.npy``), for ``edit_path``."""
     import math
 
+    import numpy as np
     import torch
     from pix2latent_tpu_torch import VariableManager
     from pix2latent_tpu_torch.examples import common
     from pix2latent_tpu_torch.examples import invert_biggan_basincma as ex
     from pix2latent_tpu_torch.ops import attention as A
     from pix2latent_tpu_torch.optimizers import BasinCMAOptimizer
+    from pix2latent_tpu_torch.utils.params_io import (save_params_npz,
+                                                      to_jax_params)
 
-    args = ex.parser().parse_args(["--device", "cuda"])
+    args = ex.parser().parse_args(["--device", "cuda", "--save_dir",
+                                   str(save_dir)])
     args.grad_free = True
     model = common.load_biggan(args)
     target, weight = common.load_target(args, model)
@@ -1258,6 +1340,13 @@ def phase_biggan_f32_path(generations, final_steps, cases):
         f"no convergence: first generation {tell_mins[0]}, final {final_min}")
     assert counts == expect, (counts, expect)
     assert counts["fwd"] > 0 and counts["bwd"] > 0
+
+    common.finish(args, opt, variables, outs, final, str(save_dir))
+    save_params_npz(str(Path(save_dir) / "weights.npz"), to_jax_params(model))
+    best = int(np.argmin(np.asarray(final[-1][1]["loss"]).reshape(-1)))
+    with torch.no_grad():
+        render = model(variables["input"]["z"], variables["input"]["c"])
+    np.save(Path(save_dir) / "best_render.npy", render[best].cpu().numpy())
     return counts
 
 
@@ -1969,14 +2058,17 @@ def phase_transform_batched_path():
 
 
 
-def _run_entry_point(ex, driver, sched, argv):
+def _run_entry_point(ex, driver, sched, argv, counts_of=None):
     """``ex.main(argv)`` on the card with ``ex.schedule`` swapped for
     ``sched`` and the driver class ``driver`` (an attribute of ``ex``)
-    recorded, K1's counters set to 0 just before and read just after, and
-    the host syncs recorded (:class:`_RecordSyncs`). Returns ``(driver
-    instance, K1 counts, seconds, peak bytes, syncs)``."""
+    recorded, every kernel's counters set to 0 just before and read just
+    after (``counts_of()``, K1's by default), and the host syncs recorded
+    (:class:`_RecordSyncs`). Returns ``(driver instance, counts, seconds,
+    peak bytes, syncs)``."""
     import torch
     from pix2latent_tpu_torch.ops import attention as A
+    from pix2latent_tpu_torch.ops import fir_blur as FB
+    from pix2latent_tpu_torch.ops import mod_backward as MB
 
     ex_schedule, ex_driver = ex.schedule, getattr(ex, driver)
     drivers = []
@@ -1991,13 +2083,14 @@ def _run_entry_point(ex, driver, sched, argv):
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        A.reset_launch_counts()
+        for kernel in (A, FB, MB):
+            kernel.reset_launch_counts()
         t0 = time.perf_counter()
         with _RecordSyncs() as syncs:
             ex.main(argv)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        counts = A.launch_counts()
+        counts = (counts_of or A.launch_counts)()
         peak = torch.cuda.max_memory_allocated()
     finally:
         ex.schedule = ex_schedule
@@ -2143,18 +2236,43 @@ def phase_ng_evalonly_path():
     return counts
 
 
-def phase_cars_ng_path():
+def _save_stylegan2_weights(model_name, path):
+    """The ``init="equalized"`` weights of StyleGAN2 ``model_name`` from
+    seed 0 (as ``sg2_path``'s), written by ``save_params_npz``: the
+    ``--checkpoint`` of a StyleGAN2 entry point."""
+    import warnings
+
+    from pix2latent_tpu_torch.models.stylegan2 import StyleGAN2
+    from pix2latent_tpu_torch.utils.params_io import (STYLEGAN2,
+                                                      save_params_npz,
+                                                      to_jax_params)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")       # random-init notices
+        model = StyleGAN2(model_name, seed=0, init="equalized", device="cpu")
+    save_params_npz(str(path), to_jax_params(model.generator, STYLEGAN2))
+    return str(path)
+
+
+def _kernel_flags(model):
+    """``(fir_kernel, fused_mod_bwd)`` of every up-conv blur and modulated
+    conv of a StyleGAN2 model, as two sets."""
+    from pix2latent_tpu_torch.models.stylegan2 import ModulatedConv
+    convs = [m for m in model.generator.modules()
+             if isinstance(m, ModulatedConv)]
+    return ({m.blur._taps is not None for m in convs if m.up},
+            {m.fused_mod_bwd for m in convs})
+
+
+def phase_cars_ng_path(work_dir):
     """StyleGAN2-cars-512 in float32 through the hybrid driver's host loop
     with DiagonalCMA; see the module docstring."""
     import math
-    import warnings
 
     import torch
     from pix2latent_tpu_torch.examples import common
     from pix2latent_tpu_torch.examples import \
         invert_stylegan2_cars_hybrid_ng as ex
-    from pix2latent_tpu_torch.models.stylegan2 import (StyleGAN2,
-                                                       modulated_conv_inputs)
+    from pix2latent_tpu_torch.models.stylegan2 import modulated_conv_inputs
     from pix2latent_tpu_torch.ops import fir_blur as FB
     from pix2latent_tpu_torch.ops import mod_backward as MB
     from pix2latent_tpu_torch.optimizers import HybridNevergradOptimizer
@@ -2162,16 +2280,13 @@ def phase_cars_ng_path():
     gens, steps, final_steps = CARS_NG_SCHEDULE
     full = ex.schedule(argparse.Namespace(smoke=False))
     t_start = time.perf_counter()
+    weights = _save_stylegan2_weights("cars", Path(work_dir) / "cars.npz")
     args = ex.parser().parse_args(["--ng_method", "DiagonalCMA",
                                    "--num_samples", str(SG2_POP),
+                                   "--checkpoint", weights,
                                    "--device", "cuda"])
     args.grad_free = True
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")       # random-init notices
-        model = StyleGAN2("cars", search="z", dtype=torch.float32, seed=0,
-                          init="equalized", fused_mod_bwd=True,
-                          fir_kernel=True, device="cuda")
-    model, vm = common.stylegan2_problem(args, model=model)
+    model, vm = common.stylegan2_problem(args)
     opt = HybridNevergradOptimizer(args.ng_method, model, vm,
                                    common.make_loss(args),
                                    max_batch_size=args.max_minibatch,
@@ -2211,8 +2326,10 @@ def phase_cars_ng_path():
         "phase": "cars_ng_path", "model": "stylegan2-cars-512",
         "entry_point_functions": (
             "pix2latent_tpu_torch/examples/common.py: stylegan2_problem "
-            "(load_target, register_stylegan2_vars, cars_loss_mask), "
-            "make_loss"),
+            "(load_stylegan2 of --checkpoint, load_target, "
+            "register_stylegan2_vars, cars_loss_mask), make_loss"),
+        "kernel_flags": {"fir_kernel": sorted(_kernel_flags(model)[0]),
+                         "fused_mod_bwd": sorted(_kernel_flags(model)[1])},
         "ng_method": "DiagonalCMA", "strategy": type(opt.ng_strategy).__name__,
         "channel_multiplier": 2, "dtype": "float32", "population": SG2_POP,
         "driver": "optimize", "generations": gens, "grad_steps": steps,
@@ -2232,6 +2349,7 @@ def phase_cars_ng_path():
         "phase_seconds": time.perf_counter() - t_start}
     emit(res)
     assert dtypes == {torch.float32}, dtypes
+    assert _kernel_flags(model) == ({True}, {True}), _kernel_flags(model)
     assert type(opt.ng_strategy).__name__ == "DiagonalCMAStrategy"
     assert tuple(opt.out.shape) == (SG2_POP, 512, 512, 3), opt.out.shape
     assert bool(torch.isfinite(opt.out).all())
@@ -2243,6 +2361,277 @@ def phase_cars_ng_path():
     assert counts == expect, (counts, expect)
     assert eigh_site not in sites, sites
     return counts
+
+
+def phase_ffhq_entry_path(work_dir):
+    """``examples/invert_stylegan2_ffhq_basincma.main`` under its recipe on
+    the equalized FFHQ weights as ``--checkpoint``; see the module
+    docstring."""
+    import math
+
+    import numpy as np
+    import torch
+    from pix2latent_tpu_torch.examples import \
+        invert_stylegan2_ffhq_basincma as ex
+
+    gens, steps, final_steps = FFHQ_ENTRY_SCHEDULE
+    full = ex.schedule(argparse.Namespace(smoke=False))
+    t_start = time.perf_counter()
+    weights = _save_stylegan2_weights("ffhq", Path(work_dir) / "ffhq.npz")
+    out_dir = Path(work_dir) / "ffhq_out"
+    opt, counts, seconds, peak, syncs = _run_entry_point(
+        ex, "BasinCMAOptimizer", FFHQ_ENTRY_SCHEDULE,
+        ["--checkpoint", weights, "--save_dir", str(out_dir),
+         "--device", "cuda"], counts_of=_kernel_counts)
+    result = dict(np.load(out_dir / "result.npz"))
+
+    g = opt.model.generator
+    chunks = -(-opt.num_samples // opt.max_batch_size)
+    expect = ffhq_expected_launches(gens, final_steps, chunks, steps)
+    # load_target renders the synthetic self-target, one sample without
+    # gradients: one blur per up level
+    expect["fir_blur_fwd"] += len(sg2_blur_levels(g.im_res))
+    tell_mins = [float(v) for v in result["tell_min"]]
+    final_min = float(result["loss"].min())
+    gen_s = statistics.mean(opt.gen_seconds)
+    dtypes = {m.dtype for m in g.modules()
+              if isinstance(getattr(m, "dtype", None), torch.dtype)}
+    res = {
+        "phase": "ffhq_entry_path", "model": "stylegan2-ffhq-1024",
+        "entry_point": ("pix2latent_tpu_torch/examples/"
+                        "invert_stylegan2_ffhq_basincma.py"),
+        "checkpoint": "init=equalized, seed 0, save_params_npz",
+        "channel_multiplier": 2, "dtypes": sorted(str(d) for d in dtypes),
+        "population": opt.num_samples, "remat_from_res": g.remat_from_res,
+        "max_batch_size": opt.max_batch_size, "chunks_per_step": chunks,
+        "kernel_flags": {"fir_kernel": sorted(_kernel_flags(opt.model)[0]),
+                         "fused_mod_bwd": sorted(_kernel_flags(opt.model)[1])},
+        "driver": "optimize", "generations": gens, "grad_steps": steps,
+        "final_steps": final_steps,
+        "schedule": (f"{gens} x {steps} + {final_steps} (the example: "
+                     f"{full[0]} x {full[1]} + {full[2]})"),
+        "seconds": seconds, "gen_seconds": opt.gen_seconds,
+        "seconds_per_generation": gen_s,
+        "images_per_sec": opt.num_samples * steps / gen_s,
+        "peak_memory_bytes": peak,
+        "tell_min_per_generation": tell_mins, "final_min_loss": final_min,
+        "launches": counts, "expected_launches": expect,
+        "phase_seconds": time.perf_counter() - t_start}
+    emit(res)
+    assert (g.im_res, g.num_layers, g.remat_from_res, opt.max_batch_size) \
+        == (1024, 17, 256, 2)
+    assert res["dtypes"] == ["torch.bfloat16"], res["dtypes"]
+    assert _kernel_flags(opt.model) == ({True}, {True})
+    assert opt.num_samples == SG2_POP, opt.num_samples
+    assert len(tell_mins) == gens
+    assert all(math.isfinite(v) for v in tell_mins), tell_mins
+    assert math.isfinite(final_min) and final_min < tell_mins[0], (
+        f"no convergence: first generation {tell_mins[0]}, final {final_min}")
+    assert counts == expect, (counts, expect)
+    return counts
+
+
+def phase_edit_path(result_dir, work_dir):
+    """``examples/edit_biggan.main`` on ``biggan_f32_path``'s results at
+    the reference's GANSpace defaults; see the module docstring."""
+    import numpy as np
+    import torch
+    from pix2latent_tpu_torch.edit import ganspace
+    from pix2latent_tpu_torch.examples import edit_biggan as ex
+    from pix2latent_tpu_torch.models.biggan import BigGAN
+    from pix2latent_tpu_torch.ops import attention as A
+
+    t_start = time.perf_counter()
+    result_dir = Path(result_dir)
+    weights = str(result_dir / "weights.npz")
+    pca_samples, components = EDIT_PCA
+    draws, pca = [], {}
+    draw, components_of = ganspace._draw, ex.biggan_components
+
+    def recorded_draw(generator, shape, device):
+        t = draw(generator, shape, device)
+        draws.append(t)
+        return t
+
+    def timed_components(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        u = components_of(*a, **k)
+        torch.cuda.synchronize()
+        pca["seconds"] = time.perf_counter() - t0
+        pca["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+        return u
+
+    ganspace._draw, ex.biggan_components = recorded_draw, timed_components
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        A.reset_launch_counts()
+        t0 = time.perf_counter()
+        editor, edits = ex.main([
+            "--var_path", str(result_dir / "vars.npy"),
+            "--checkpoint", weights, "--save_dir",
+            str(Path(work_dir) / "edits"), "--device", "cuda"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = A.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        ganspace._draw, ex.biggan_components = draw, components_of
+
+    # the best sample as the inversion rendered it with its population
+    inverted = torch.as_tensor(np.load(result_dir / "best_render.npy"),
+                               device="cuda")
+    default = edits["original"]
+    rel = float((default - inverted).norm() / inverted.norm())
+    u = editor.components
+    norms = u.norm(dim=1)
+
+    # the same draws through the same function on the CPU, its singular
+    # values kept for the gaps
+    replay = iter(d.cpu() for d in draws)
+    pca_lowrank, spectrum = ganspace.pca_lowrank, []
+
+    def recorded_pca(*a, **k):
+        s, v = pca_lowrank(*a, **k)
+        spectrum.append(s.double())
+        return s, v
+
+    ganspace._draw = lambda generator, shape, device: next(replay)
+    ganspace.pca_lowrank = recorded_pca
+    try:
+        import warnings
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            cpu_model = BigGAN("biggan-deep-256", pretrained_path=weights,
+                               device="cpu")
+        t1 = time.perf_counter()
+        u_cpu = ganspace.biggan_components(
+            cpu_model, editor._c.cpu(), num_components=components,
+            num_samples=pca_samples)
+        cpu_seconds = time.perf_counter() - t1
+    finally:
+        ganspace._draw, ganspace.pca_lowrank = draw, pca_lowrank
+    u_card = u.double().cpu()
+    sign = torch.sign((u_card * u_cpu.double()).sum(dim=1, keepdim=True))
+    comp_err = (u_card * sign - u_cpu.double()).abs().max(dim=1).values
+    sv = spectrum[0]
+    diffs = (sv[1:] - sv[:-1]).abs()
+    gap = torch.minimum(torch.cat([diffs[:1], diffs]),
+                        torch.cat([diffs, diffs[-1:]])) / sv
+    comp_tol = EDIT_COMPONENT_ATOL * torch.clamp(EDIT_GAP / gap, min=1.0)
+    edit_diff = {name: float((im - default).abs().max())
+                 for name, im in edits.items() if name != "original"}
+    res = {
+        "phase": "edit_path", "model": "biggan-deep-256",
+        "entry_point": "pix2latent_tpu_torch/examples/edit_biggan.py",
+        "input": "biggan_f32_path's vars.npy (common.finish) and weights",
+        "dtype": "float32", "best_index": editor._idx,
+        "pca_samples": pca_samples, "components": list(u.shape),
+        "pca_seconds": pca.get("seconds"),
+        "pca_peak_memory_bytes": pca.get("peak_memory_bytes"),
+        "cpu_pca_seconds": cpu_seconds, "seconds": seconds,
+        "peak_memory_bytes": peak,
+        "default_vs_inversion_rel_err": rel, "default_tolerance": 1e-3,
+        "component_norms_minmax": [float(norms.min()), float(norms.max())],
+        "components_vs_cpu_max_abs_err": comp_err.tolist(),
+        "components_relative_gap": gap.tolist(),
+        "components_tolerance": comp_tol.tolist(),
+        "edit_max_abs_diff_from_default": edit_diff,
+        "attention_launches": counts,
+        "expected_launches": {"fwd": 3, "bwd": 0},
+        "phase_seconds": time.perf_counter() - t_start}
+    emit(res)
+    assert tuple(default.shape) == (256, 256, 3), default.shape
+    assert all(bool(torch.isfinite(im).all()) for im in edits.values())
+    assert rel <= 1e-3, rel
+    assert tuple(u.shape) == (components, 128), u.shape
+    assert bool(torch.isfinite(u).all())
+    assert float((norms - 1).abs().max()) <= 1e-5, norms
+    assert bool(torch.isfinite(comp_err).all())
+    assert bool((comp_err <= comp_tol).all()), (comp_err, comp_tol)
+    assert all(v > 1e-3 for v in edit_diff.values()), edit_diff
+    assert counts == {"fwd": 3, "bwd": 0}, counts
+    return counts
+
+
+def phase_pack_pairs_step():
+    """One StyleGAN2-cars-512 step with and without ``pack_pairs``; see the
+    module docstring."""
+    import warnings
+
+    import torch
+    from pix2latent_tpu_torch.models.stylegan2 import StyleGAN2
+    from pix2latent_tpu_torch.ops import fir_blur as FB
+    from pix2latent_tpu_torch.ops import mod_backward as MB
+
+    t_start = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    z = torch.randn((SG2_POP, 512), generator=gen, device="cuda")
+    res = {"phase": "pack_pairs_step", "model": "stylegan2-cars-512",
+           "population": SG2_POP, "pack_pairs_max_ch": PACK_MAX_CH,
+           "packed_levels": [512], "fir_kernel": True,
+           "fused_mod_bwd": False, "step": "generator forward, "
+           "sum(out ** 2), z gradient"}
+    for dtype in (torch.bfloat16, torch.float32):
+        models = {}
+        for packed in (0, PACK_MAX_CH):
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                models[packed] = StyleGAN2(
+                    "cars", seed=0, init="equalized", dtype=dtype,
+                    fir_kernel=True, pack_pairs_max_ch=packed,
+                    device="cuda")
+
+        def step(model):
+            zz = z.clone().requires_grad_(True)
+            out = model.generator(zz)
+            (g,) = torch.autograd.grad((out.float() ** 2).sum(), zz)
+            return out.detach(), g
+
+        name = str(dtype).replace("torch.", "")
+        got = {}
+        for packed, model in models.items():
+            FB.reset_launch_counts()
+            MB.reset_launch_counts()
+            out, g = step(model)
+            torch.cuda.synchronize()
+            got[packed] = (out, g, dict(FB.launch_counts()),
+                           MB.launch_counts()["bwd"])
+        (a, ga, ka, ma), (b, gb, kb, mb) = got[0], got[PACK_MAX_CH]
+        case = {"fir_blur_launches": {"unpacked": ka, "packed": kb},
+                "mod_backward_launches": [ma, mb],
+                "out_max_abs_err": float((a - b).abs().max()),
+                "out_rel_err": float((a - b).norm() / a.norm()),
+                "grad_max_abs_err": float((ga - gb).abs().max()),
+                "grad_max_abs": float(ga.abs().max()),
+                "grad_rel_err": float((ga - gb).norm() / ga.norm())}
+        if dtype == torch.float32:
+            # the tolerances of tests/test_stylegan2.py's packing tests
+            case["tolerance"] = "out rtol 2e-4 atol 2e-4; grad 1e-4 x max"
+            case["ok"] = bool(torch.allclose(b, a, rtol=2e-4, atol=2e-4)) \
+                and case["grad_max_abs_err"] < 1e-4 * case["grad_max_abs"]
+        else:
+            # bfloat16 rounds each layer's output: relative norm errors
+            # within the repo's bf16 bound for two StyleGAN2 paths
+            case["tolerance"] = "out and grad rel 2e-2"
+            case["ok"] = (case["out_rel_err"] <= 2e-2
+                          and case["grad_rel_err"] <= 2e-2)
+            for packed, model in models.items():
+                case[f"{'packed' if packed else 'unpacked'}_ms"] = cuda_ms(
+                    lambda m=model: step(m), reps=PACK_REPS, warmup=2)
+        res[name] = case
+        del models, got, a, b, ga, gb
+        torch.cuda.empty_cache()
+    res["phase_seconds"] = time.perf_counter() - t_start
+    emit(res)
+    for name in ("bfloat16", "float32"):
+        case = res[name]
+        assert case["ok"], (name, case)
+        k = case["fir_blur_launches"]
+        assert k["unpacked"] == k["packed"] == {"fwd": 7, "bwd": 7}, k
+        assert case["mod_backward_launches"] == [0, 0], case
+    return res
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2277,6 +2666,16 @@ def main(argv=None):
         return 2
     sys.path.insert(0, str(ROOT))
 
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        return _run_phases(args, t0, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _run_phases(args, t0, work):
+    import torch
+
     env = phase_env()
     phase_build()
     cases = phase_kernels()
@@ -2288,8 +2687,10 @@ def main(argv=None):
     ffhq_counts = phase_ffhq_path(args.ffhq_generations,
                                   args.ffhq_final_steps)
     phase_ffhq_whole_step()
+    biggan_results = Path(work) / "biggan_f32"
     f32_counts = phase_biggan_f32_path(args.biggan_generations,
-                                       args.biggan_final_steps, cases)
+                                       args.biggan_final_steps, cases,
+                                       biggan_results)
     search_counts, latent_counts = phase_transform_path()
     phase_transform_whole_step()
     real_counts = phase_real_input_path(args.biggan_generations,
@@ -2298,7 +2699,10 @@ def main(argv=None):
     tb_search_counts, tb_latent_counts = phase_transform_batched_path()
     hybrid_ng_counts = phase_ng_hybrid_path()
     eval_ng_counts = phase_ng_evalonly_path()
-    cars_ng_counts = phase_cars_ng_path()
+    cars_ng_counts = phase_cars_ng_path(work)
+    phase_ffhq_entry_path(work)
+    edit_counts = phase_edit_path(biggan_results, work)
+    phase_pack_pairs_step()
 
     def timed(kernel, path, dtype="bfloat16", shape=FLAGSHIP):
         """The timed case at the path's shape."""
@@ -2342,6 +2746,9 @@ def main(argv=None):
             ("sagan_attention", "ng_eval", "_f32_ng_eval", eval_ng_counts,
              "sagan_attention.cu",
              {"fwd": "attention.py:131", "bwd": "attention.py:154"}),
+            ("sagan_attention", "edit", "_f32_edit",
+             {"fwd": edit_counts["fwd"]}, "sagan_attention.cu",
+             {"fwd": "attention.py:131"}),
             ("fir_blur", "main", "", {"fwd": sg2_counts["fir_blur_fwd"],
                                       "bwd": sg2_counts["fir_blur_bwd"]},
              "fir_blur.cu", {"fwd": "pallas_fir.py:108",
@@ -2358,6 +2765,8 @@ def main(argv=None):
                              "bwd": "pallas_fir.py:108"})):
         if path == "transform_search":          # pop 7
             case = timed(kernel, "main", "float32", TRANSFORM_SEARCH)
+        elif path == "edit":                    # one sample
+            case = timed(kernel, "main", "float32", EDIT)
         elif path in ("biggan_f32_path", "transform_latent", "real_input",
                       "ng_hybrid", "ng_eval",               # K1 f32, pop 18
                       "cars_ng"):               # K2 f32 at the cars shape
@@ -2369,8 +2778,11 @@ def main(argv=None):
         else:
             case = timed(kernel, path)
         for key in ("fwd", "bwd"):
+            if key not in launches:             # the editor: forward only
+                continue
             extra = ({"design": case["design"], "shape": case["shape"]}
-                     if kernel == "sagan_attention" else {})
+                     if kernel == "sagan_attention"
+                     else {"launched_by": LAUNCHED_BY[path]})
             kernels.append({
                 "name": f"{kernel}_{key}{suffix}", "route": "cuda",
                 "source": f"pix2latent_tpu_torch/csrc/{src}",
@@ -2388,6 +2800,8 @@ def main(argv=None):
         case = timed("mod_backward", path, dtype)
         kernels.append({
             "name": f"mod_backward{suffix}", "route": "cuda",
+            "launched_by": LAUNCHED_BY[path if suffix != "_f32" else
+                                       "cars_ng"],
             "source": "pix2latent_tpu_torch/csrc/mod_backward.cu",
             "replaces": "pix2latent_tpu/ops/mod_backward.py:97",
             "launches": launches["mod_backward"],

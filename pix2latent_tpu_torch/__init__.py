@@ -9,8 +9,11 @@ backward (``ops/mod_backward.py``), built from ``csrc/*.cu`` at first use.
 """
 
 from pix2latent_tpu_torch import distribution, hooks
-from pix2latent_tpu_torch.variables import (VariableManager, load_variables,
-                                            save_variables)
+from pix2latent_tpu_torch.variables import (VariableManager, Variables,
+                                            load_variables, num_samples,
+                                            save_variables, split_vars,
+                                            stack_splits)
 
-__all__ = ["VariableManager", "distribution", "hooks", "load_variables",
-           "save_variables"]
+__all__ = ["VariableManager", "Variables", "save_variables", "load_variables",
+           "split_vars", "stack_splits", "num_samples", "distribution",
+           "hooks"]

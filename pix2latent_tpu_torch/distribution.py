@@ -96,3 +96,12 @@ class Uniform(Distribution):
 
     def __repr__(self):
         return f"Uniform(low={self.low}, high={self.high})"
+
+
+# lowercase factories, the reference's function-style names
+def truncated_clamp_normal(sigma=1.0, trunc=2.0):
+    return TruncatedClampNormal(sigma=sigma, trunc=trunc)
+
+
+def normal(sigma=1.0):
+    return Normal(sigma=sigma)

@@ -87,14 +87,20 @@ def load_biggan(args):
 
 
 def load_stylegan2(args):
-    """StyleGAN2 as the JAX package's ``load_stylegan2`` builds it: the
-    hand-written kernels' flags at their defaults (off)."""
+    """StyleGAN2 as the JAX package's ``load_stylegan2`` builds it, with the
+    hand-written kernels on the card: on a CUDA ``--device`` the FIR blur
+    (K2, ``fir_kernel``) and the fused modulation backward (K3,
+    ``fused_mod_bwd``) are on, the counterparts of the JAX package's Pallas
+    kernels, which it leaves off only because they need a TPU; on the CPU
+    both stay off and the plain PyTorch paths run. ``pack_pairs_max_ch``
+    stays 0."""
     from pix2latent_tpu_torch.models.stylegan2 import StyleGAN2
+    on_card = torch.device(args.device).type == "cuda"
     kwargs = dict(
         search=args.search,
         dtype=torch.bfloat16 if getattr(args, "bf16", False) else torch.float32,
         remat_from_res=getattr(args, "remat_from_res", 0),
-        device=args.device)
+        fused_mod_bwd=on_card, fir_kernel=on_card, device=args.device)
     with warnings.catch_warnings():
         if args.checkpoint:
             return StyleGAN2(args.model, pretrained_path=args.checkpoint,
@@ -209,14 +215,13 @@ def cars_loss_mask(im=512, model="cars"):
     return m
 
 
-def stylegan2_problem(args, model=None):
+def stylegan2_problem(args):
     """``(model, var_manager)`` of the StyleGAN2 entry points:
-    :func:`load_stylegan2` (or ``model``, when given), the target and weight
-    of :func:`load_target`, and :func:`register_stylegan2_vars` with the
-    cars border mask for ``--model cars``."""
+    :func:`load_stylegan2`, the target and weight of :func:`load_target`,
+    and :func:`register_stylegan2_vars` with the cars border mask for
+    ``--model cars``."""
     from pix2latent_tpu_torch import VariableManager
-    if model is None:
-        model = load_stylegan2(args)
+    model = load_stylegan2(args)
     target, weight = load_target(args, model)
     vm = register_stylegan2_vars(
         VariableManager(device=args.device), model, args, target, weight,

@@ -3,10 +3,10 @@
 ``--num_samples`` seeds, the 512x512 padded target under the cars border
 mask.
 
-The generator runs in float32 unless ``--bf16``; its hand-written kernel
-flags stay at their defaults (off), as in the JAX example. ``--search w+``
-searches the w latent and the noise maps. ``--smoke`` runs 10 steps at
-population 4. ``--device cpu`` runs the plain PyTorch paths.
+The generator runs in float32 unless ``--bf16``; on the card it runs the
+hand-written FIR blur and modulation backward (``load_stylegan2``).
+``--search w+`` searches the w latent and the noise maps. ``--smoke`` runs 10
+steps at population 4. ``--device cpu`` runs the plain PyTorch paths.
 
     python -m pix2latent_tpu_torch.examples.invert_stylegan2_cars_adam \\
         [--search w+] [--smoke] [--device cpu]

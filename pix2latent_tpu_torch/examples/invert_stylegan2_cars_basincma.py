@@ -4,12 +4,12 @@ under the cars border mask, 30 CMA generations of population 22 (CMA's
 default at d = 512), each candidate refined by 30 Adam steps, then 300
 final Adam steps.
 
-The generator runs in float32 unless ``--bf16``; its hand-written kernel
-flags stay at their defaults (off), as in the JAX example. ``--search w+``
-searches the w latent and the noise maps. ``--fused`` drives
-``optimize_fused``, ``--resume PATH`` checkpoints the run there and resumes
-it from there, ``--smoke`` runs 2 generations of 4 steps and 8 final
-steps. ``--device cpu`` runs the plain PyTorch paths.
+The generator runs in float32 unless ``--bf16``; on the card it runs the
+hand-written FIR blur and modulation backward (``load_stylegan2``).
+``--search w+`` searches the w latent and the noise maps. ``--fused`` drives
+``optimize_fused``, ``--resume PATH`` checkpoints the run there and resumes it
+from there, ``--smoke`` runs 2 generations of 4 steps and 8 final steps.
+``--device cpu`` runs the plain PyTorch paths.
 
     python -m pix2latent_tpu_torch.examples.invert_stylegan2_cars_basincma \\
         [--search w+] [--smoke] [--fused] [--resume PATH] [--device cpu]

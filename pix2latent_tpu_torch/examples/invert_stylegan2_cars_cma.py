@@ -3,12 +3,12 @@ of the JAX package's ``examples/invert_stylegan2_cars_cma.py``): 200
 eval-only CMA generations of population 22, then 300 Adam steps on a final
 ask, the 512x512 padded target under the cars border mask.
 
-The generator runs in float32 unless ``--bf16``; its hand-written kernel
-flags stay at their defaults (off), as in the JAX example. ``--search w+``
-searches the w latent and the noise maps. ``--fused`` drives
-``optimize_fused``, ``--resume PATH`` checkpoints the run there and resumes
-it from there, ``--smoke`` runs 3 generations and 8 steps. ``--device cpu``
-runs the plain PyTorch paths.
+The generator runs in float32 unless ``--bf16``; on the card it runs the
+hand-written FIR blur and modulation backward (``load_stylegan2``).
+``--search w+`` searches the w latent and the noise maps. ``--fused`` drives
+``optimize_fused``, ``--resume PATH`` checkpoints the run there and resumes it
+from there, ``--smoke`` runs 3 generations and 8 steps. ``--device cpu`` runs
+the plain PyTorch paths.
 
     python -m pix2latent_tpu_torch.examples.invert_stylegan2_cars_cma \\
         [--search w+] [--smoke] [--fused] [--resume PATH] [--device cpu]

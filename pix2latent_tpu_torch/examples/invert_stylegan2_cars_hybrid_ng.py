@@ -5,12 +5,12 @@ Adam inside (counterpart of the JAX package's
 population ``--num_samples``, each candidate refined by 50 Adam steps, then
 300 final Adam steps, the 512x512 padded target under the cars border mask.
 
-The generator runs in float32 unless ``--bf16``; its hand-written kernel
-flags stay at their defaults (off), as in the JAX example. ``--search w+``
-searches the w latent and the noise maps. ``--fused`` drives
-``optimize_fused``, ``--resume PATH`` checkpoints the run there and
-resumes it from there, ``--smoke`` runs 2 generations of 4 steps and 8
-final steps. ``--device cpu`` runs the plain PyTorch paths.
+The generator runs in float32 unless ``--bf16``; on the card it runs the
+hand-written FIR blur and modulation backward (``load_stylegan2``).
+``--search w+`` searches the w latent and the noise maps. ``--fused`` drives
+``optimize_fused``, ``--resume PATH`` checkpoints the run there and resumes it
+from there, ``--smoke`` runs 2 generations of 4 steps and 8 final steps.
+``--device cpu`` runs the plain PyTorch paths.
 
     python -m pix2latent_tpu_torch.examples.invert_stylegan2_cars_hybrid_ng \\
         [--ng_method DiagonalCMA] [--search w+] [--smoke] [--fused] \\

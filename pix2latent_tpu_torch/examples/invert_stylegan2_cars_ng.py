@@ -4,13 +4,13 @@
 or ``Host:<name>``) at population ``--num_samples``, then 300 Adam steps on
 a final ask, the 512x512 padded target under the cars border mask.
 
-The generator runs in float32 unless ``--bf16``; its hand-written kernel
-flags stay at their defaults (off), as in the JAX example. ``--search w+``
-searches the w latent and the noise maps. ``--fused`` drives
-``optimize_fused`` (no host sync in a generation for the strategies without
-an ``eigh``), ``--resume PATH`` checkpoints the run there and resumes it
-from there, ``--smoke`` runs 3 generations and 8 steps. ``--device cpu``
-runs the plain PyTorch paths.
+The generator runs in float32 unless ``--bf16``; on the card it runs the
+hand-written FIR blur and modulation backward (``load_stylegan2``).
+``--search w+`` searches the w latent and the noise maps. ``--fused`` drives
+``optimize_fused`` (no host sync in a generation for the strategies without an
+``eigh``), ``--resume PATH`` checkpoints the run there and resumes it from
+there, ``--smoke`` runs 3 generations and 8 steps. ``--device cpu`` runs the
+plain PyTorch paths.
 
     python -m pix2latent_tpu_torch.examples.invert_stylegan2_cars_ng \\
         [--ng_method DiagonalCMA] [--search w+] [--smoke] [--fused] \\

@@ -11,7 +11,8 @@ At 1024x1024 and a population of 22 the recipe bounds the activations:
   chunk gradients are scaled to the population mean, ``core/step.py``).
 
 Flags override it (``--no_recipe`` turns it off; ``--model cars`` ignores
-it). ``--fused`` drives ``optimize_fused`` (one function per generation that
+it). On the card the generator runs the hand-written FIR blur and modulation
+backward (``load_stylegan2``). ``--fused`` drives ``optimize_fused`` (one function per generation that
 reads nothing back), ``--resume PATH`` checkpoints the run there and resumes
 it from there. ``--device cpu`` runs the plain PyTorch paths. ``--fp``
 inverts an image (padded to a square, resized; ``--mask_fp`` weights the
@@ -46,7 +47,7 @@ def apply_ffhq_recipe(args):
     return args
 
 
-def main(argv=None):
+def parser():
     p = base_parser(__doc__, model="stylegan2")
     p.set_defaults(model="ffhq")
     p.add_argument("--no_recipe", action="store_true",
@@ -57,7 +58,16 @@ def main(argv=None):
     p.add_argument("--fused", action="store_true",
                    help="one function per CMA generation, reading nothing "
                         "back")
-    args = apply_ffhq_recipe(p.parse_args(argv))
+    return p
+
+
+def schedule(args):
+    """(generations, inner steps, final steps)."""
+    return (2, 4, 8) if args.smoke else (30, 30, 300)
+
+
+def main(argv=None):
+    args = apply_ffhq_recipe(parser().parse_args(argv))
     args.grad_free = True
     model = load_stylegan2(args)
     im = model.im_res
@@ -71,10 +81,7 @@ def main(argv=None):
                             device=args.device)
     opt.log_resize_factor = 0.25
 
-    if args.smoke:
-        meta, grad, last = 2, 4, 8
-    else:
-        meta, grad, last = 30, 30, 300
+    meta, grad, last = schedule(args)
     drive = opt.optimize_fused if args.fused else opt.optimize
     variables, outs, losses = drive(meta_steps=meta, grad_steps=grad,
                                     last_grad_steps=last,

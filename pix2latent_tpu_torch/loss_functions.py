@@ -58,6 +58,44 @@ def invertibility_loss(ims, target_transform, transform_params, mask=None):
     return masked_l2_loss(ims, inverted, mask)
 
 
+def weight_regularization(orig_params, curr_params, reg="l1",
+                          weight_dict=None, skip_substr="bn"):
+    """Distance between two sets of weights, for finetuning a model: the
+    sum over parameters of ``mean |curr - orig|`` (``reg="l1"``), ``mean
+    (curr - orig)^2`` (``"l2"``) or ``max |curr - orig|`` (``"inf"``).
+
+    Each argument is an ``nn.Module`` (its ``named_parameters``) or a
+    mapping of names to tensors (a ``state_dict``). Names are the port's
+    dotted ones, ``generator.block_0.bn_0.scale.weight``, where the JAX
+    package keys its pytree by ``keystr`` path (``['generator']['block_0']
+    ['bn_0']['scale']['kernel']``): the module names are the same, so a
+    name holds ``skip_substr`` (case-insensitive) in one package exactly
+    when it does in the other, and those parameters are skipped.
+    ``weight_dict`` maps the port's names to a term's weight (default 1)."""
+    def named(params):
+        if isinstance(params, torch.nn.Module):
+            return dict(params.named_parameters())
+        return dict(params)
+
+    orig = named(orig_params)
+    reg_loss = 0.0
+    for name, curr in named(curr_params).items():
+        if skip_substr and skip_substr in name.lower():
+            continue
+        diff = curr - orig[name]
+        if reg == "l1":
+            term = diff.abs().mean()
+        elif reg == "l2":
+            term = (diff ** 2).mean()
+        elif reg == "inf":
+            term = diff.abs().max()
+        else:
+            raise ValueError(f"unknown reg {reg}")
+        w = weight_dict[name] if weight_dict is not None else 1.0
+        reg_loss = reg_loss + w * term
+    return reg_loss
+
+
 def _weighted_pool(loss_map, weight, loss_mask):
     """Spatially weighted per-sample mean (the loss map itself without a
     weight). A 3-channel weight is averaged onto a 1-channel map."""

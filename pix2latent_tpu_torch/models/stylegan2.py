@@ -28,7 +28,11 @@ package's type promotion keeps them so: the demodulation factors, the noise
 injection's output (its gain is a float32 parameter) and everything after it
 up to the next conv, and the RGB skip sum. ``remat_from_res`` recomputes
 the synthesis blocks at and above that resolution in the backward (see
-``StyleGAN2Generator._block_runner``). Parameter names follow the Flax
+``StyleGAN2Generator._block_runner``). ``pack_pairs_max_ch`` (off by
+default, as in the JAX package) runs the blocks of at most that many
+channels on population pairs packed into the channel dimension
+(:func:`pack_pairs`), each shared conv as a 2-group conv; the function is
+the same. Parameter names follow the Flax
 tree, so ``utils/params_io.py`` (layout ``STYLEGAN2``) carries weights
 across, and the random init draws the same numbers as the JAX package's for
 the same seed.
@@ -68,6 +72,30 @@ def channels_for(res: int, channel_multiplier: int = 2) -> int:
         512: 32 * channel_multiplier,
         1024: 16 * channel_multiplier,
     }[res]
+
+
+def pack_pairs(x):
+    """``[n, c, H, W] -> [n/2, 2c, H, W]``: member i in channels ``[:c]``,
+    member ``i + n/2`` in ``[c:]``, a channel concat of the two batch
+    halves. The JAX package packs so to fill the TPU's 128 lanes at thin
+    channels; the frozen shared-weight convs stay exact as 2-group convs
+    (there a dense block-diagonal kernel). Any fixed pairing is valid:
+    members are independent."""
+    n = x.shape[0]
+    return torch.cat([x[:n // 2], x[n // 2:]], dim=1)
+
+
+def unpack_pairs(y):
+    """Inverse of :func:`pack_pairs` (the original member order)."""
+    c = y.shape[1] // 2
+    return torch.cat([y[:, :c], y[:, c:]], dim=0)
+
+
+def pack_rows(s):
+    """Per-sample rows ``[n, c] -> [n/2, 2c]`` paired as :func:`pack_pairs`
+    pairs members: styles and demodulation factors of packed channels."""
+    n = s.shape[0]
+    return torch.cat([s[:n // 2], s[n // 2:]], dim=-1)
 
 
 def modulated_conv_inputs(im_res: int, n: int, channel_multiplier: int = 2):
@@ -117,12 +145,19 @@ class ModulatedConv(nn.Module):
     """Weight-(de)modulated conv by input scaling. The weight is stored
     ``[out, in, k, k]`` with runtime scale ``1/sqrt(in*k*k)``. ``up=True``
     runs the stride-2 transposed conv of the weight (output 2H+1) and the
-    FIR blur with pad (1, 1) and gain 4, which brings it to 2H."""
+    FIR blur with pad (1, 1) and gain 4, which brings it to 2H.
+
+    ``packed``: the layer may run on packed pairs (:func:`pack_pairs`); it
+    does when ``forward`` is told so. It excludes ``fused_mod_bwd``, as in
+    the JAX package."""
 
     def __init__(self, in_ch, out_ch, kernel_size=3, demodulate=True,
                  up=False, dtype=torch.float32, fused_mod_bwd=False,
-                 fir_kernel=False):
+                 fir_kernel=False, packed=False):
         super().__init__()
+        if packed and fused_mod_bwd:
+            raise ValueError("fused_mod_bwd and pack_pairs are mutually "
+                             "exclusive opt-ins")
         k = kernel_size
         self.weight = nn.Parameter(torch.zeros(out_ch, in_ch, k, k))
         self.modulation = EqualLinear(STYLE_DIM, in_ch, bias_init=1.0,
@@ -138,18 +173,26 @@ class ModulatedConv(nn.Module):
             self.blur = Blur(BLUR_KERNEL, pad=((p + 1) // 2 + 1, p // 2 + 1),
                              upsample_factor=2, use_kernel=fir_kernel)
 
-    def forward(self, x, style):
+    def forward(self, x, style, packed=False):
+        """``x`` ``[n, in, H, W]``, or with ``packed`` ``[n/2, 2 in, H,
+        W]`` (then the output is packed too)."""
         s = self.modulation(style)                           # [n, in]
         w = (self.weight * self.scale).to(self.dtype)        # [o, i, k, k]
-        x_mod = modulate(x.to(self.dtype), s, fused=self.fused_mod_bwd)
+        groups = 2 if packed else 1
+        x_mod = modulate(x.to(self.dtype), pack_rows(s) if packed else s,
+                         fused=self.fused_mod_bwd)
         if self.up:
-            y = F.conv_transpose2d(x_mod, w.transpose(0, 1), stride=2)
+            y = F.conv_transpose2d(x_mod, w.transpose(0, 1).repeat(
+                groups, 1, 1, 1), stride=2, groups=groups)
             y = self.blur(y)
         else:
-            y = F.conv2d(x_mod, w, padding=self.kernel_size // 2)
+            y = F.conv2d(x_mod, w.repeat(groups, 1, 1, 1),
+                         padding=self.kernel_size // 2, groups=groups)
         if self.demodulate:
             w2 = (w.float() ** 2).sum(dim=(2, 3)).t()        # [i, o]
             d = torch.rsqrt(s.float() ** 2 @ w2 + 1e-8)      # [n, o]
+            if packed:
+                d = pack_rows(d)
             y = y * d[:, :, None, None].to(y.dtype)
         return y
 
@@ -162,23 +205,40 @@ class NoiseInjection(nn.Module):
         super().__init__()
         self.weight = nn.Parameter(torch.zeros(()))
 
-    def forward(self, x, noise):
+    def forward(self, x, noise, packed=False):
+        if packed and noise.shape[0] > 1:
+            # member i's noise to channels [:c], member i + n/2's to [c:]
+            n2, c2, h, w = x.shape
+            noise_p = torch.stack([noise[:n2, 0], noise[n2:, 0]], dim=1)
+            y = (x.reshape(n2, 2, c2 // 2, h, w).float() + self.weight
+                 * noise_p[:, :, None].to(x.dtype).float())
+            return y.reshape(n2, c2, h, w)
         return x.float() + self.weight * noise.to(x.dtype).float()
+
+
+def _runs_packed(module, x, style):
+    """Whether a packable layer gets packed pairs: fewer rows than styles
+    (the generator packs no single-sample batch)."""
+    return module.packed and x.shape[0] != style.shape[0]
 
 
 class StyledConv(nn.Module):
     def __init__(self, in_ch, out_ch, kernel_size=3, up=False,
-                 dtype=torch.float32, fused_mod_bwd=False, fir_kernel=False):
+                 dtype=torch.float32, fused_mod_bwd=False, fir_kernel=False,
+                 packed=False):
         super().__init__()
         self.conv = ModulatedConv(in_ch, out_ch, kernel_size, up=up,
                                   dtype=dtype, fused_mod_bwd=fused_mod_bwd,
-                                  fir_kernel=fir_kernel)
+                                  fir_kernel=fir_kernel, packed=packed)
         self.noise = NoiseInjection()
         self.bias = nn.Parameter(torch.zeros(out_ch))
+        self.packed = packed
 
     def forward(self, x, style, noise):
-        y = self.noise(self.conv(x, style), noise)
-        return fused_leaky_relu(y, self.bias)
+        packed = _runs_packed(self, x, style)
+        y = self.noise(self.conv(x, style, packed), noise, packed)
+        return fused_leaky_relu(y, self.bias.repeat(2) if packed
+                                else self.bias)
 
 
 class ToRGB(nn.Module):
@@ -186,15 +246,20 @@ class ToRGB(nn.Module):
     skip; the RGB sum accumulates in float32."""
 
     def __init__(self, in_ch, upsample=True, dtype=torch.float32,
-                 fused_mod_bwd=False):
+                 fused_mod_bwd=False, packed=False):
         super().__init__()
         self.conv = ModulatedConv(in_ch, 3, 1, demodulate=False, dtype=dtype,
-                                  fused_mod_bwd=fused_mod_bwd)
+                                  fused_mod_bwd=fused_mod_bwd, packed=packed)
         self.bias = nn.Parameter(torch.zeros(3))
         self.upsample = Upsample(BLUR_KERNEL) if upsample else None
+        self.packed = packed
 
     def forward(self, x, style, skip=None):
-        y = self.conv(x, style).float() + self.bias[None, :, None, None]
+        packed = _runs_packed(self, x, style)
+        y = self.conv(x, style, packed)
+        if packed:          # the RGB sum runs unpacked
+            y = unpack_pairs(y)
+        y = y.float() + self.bias[None, :, None, None]
         if skip is not None:
             if self.upsample is not None:
                 skip = self.upsample(skip)
@@ -205,11 +270,16 @@ class ToRGB(nn.Module):
 class StyleGAN2Generator(nn.Module):
     """Mapping + synthesis; ``forward`` mirrors rosinality's Generator for
     the two paths the reference uses: z (through the mapping network) and w
-    with explicit noise. Returns the NCHW float32 RGB sum, unclamped."""
+    with explicit noise. Returns the NCHW float32 RGB sum, unclamped.
+
+    ``pack_pairs_max_ch``: the blocks of at most that many channels run on
+    packed pairs, packed at the entry of the first such block (before its
+    up-conv) and unpacked by each ToRGB; it needs an even population and
+    excludes ``fused_mod_bwd``. 0 (the default) packs nothing."""
 
     def __init__(self, im_res=512, n_mlp=8, channel_multiplier=2,
                  dtype=torch.float32, fused_mod_bwd=False, fir_kernel=False,
-                 remat_from_res=0):
+                 remat_from_res=0, pack_pairs_max_ch=0):
         super().__init__()
         self.im_res = im_res
         self.remat_from_res = int(remat_from_res)
@@ -230,11 +300,12 @@ class StyleGAN2Generator(nn.Module):
         self.to_rgb1 = ToRGB(ch, upsample=False, **flags)
         for li in range(self.log_size - 2):
             out = channels_for(2 ** (li + 3), cm)
+            pk = bool(pack_pairs_max_ch) and out <= pack_pairs_max_ch
             setattr(self, f"convs_{2 * li}", StyledConv(
-                ch, out, up=True, fir_kernel=fir_kernel, **flags))
+                ch, out, up=True, fir_kernel=fir_kernel, packed=pk, **flags))
             setattr(self, f"convs_{2 * li + 1}", StyledConv(
-                out, out, fir_kernel=fir_kernel, **flags))
-            setattr(self, f"to_rgbs_{li}", ToRGB(out, **flags))
+                out, out, fir_kernel=fir_kernel, packed=pk, **flags))
+            setattr(self, f"to_rgbs_{li}", ToRGB(out, packed=pk, **flags))
             ch = out
 
     def noise_resolutions(self):
@@ -254,12 +325,20 @@ class StyleGAN2Generator(nn.Module):
         w = z if input_is_latent else self.style(z)
         if noises is None:
             noises = self.noise_buffers()
-        x = self.input.expand(z.shape[0], -1, -1, -1)
+        n = z.shape[0]
+        x = self.input.expand(n, -1, -1, -1)
         x = self.conv1(x, w, noises[0])
         skip = self.to_rgb1(x, w)
+        packed = False
         for li in range(self.log_size - 2):
             run = self._block_runner(2 ** (li + 3))
-            x = run(getattr(self, f"convs_{2 * li}"), x, w, noises[2 * li + 1])
+            up_conv = getattr(self, f"convs_{2 * li}")
+            if up_conv.packed and not packed and n > 1:
+                if n % 2:
+                    raise ValueError(
+                        f"pack_pairs requires an even population, got {n}")
+                x, packed = pack_pairs(x), True
+            x = run(up_conv, x, w, noises[2 * li + 1])
             x = run(getattr(self, f"convs_{2 * li + 1}"), x, w,
                     noises[2 * li + 2])
             skip = run(getattr(self, f"to_rgbs_{li}"), x, w, skip)
@@ -334,7 +413,8 @@ class StyleGAN2(nn.Module):
     rosinality checkpoint (``g_ema``). With neither, a deterministic random
     init from ``seed``: by default the JAX package's, or with
     ``init="equalized"`` the same draws at the modules' own scales (see
-    :func:`_random_init_`).
+    :func:`_random_init_`). ``pack_pairs_max_ch``: see
+    :class:`StyleGAN2Generator`.
     """
 
     MODELS = {"cars": 512, "ffhq": 1024}
@@ -343,7 +423,8 @@ class StyleGAN2(nn.Module):
                  pretrained_path: Optional[str] = None, seed: int = 0,
                  channel_multiplier: int = 2, dtype=torch.float32,
                  fused_mod_bwd: bool = False, fir_kernel: bool = False,
-                 remat_from_res: int = 0, init: str = "jax", device="cuda"):
+                 remat_from_res: int = 0, init: str = "jax",
+                 pack_pairs_max_ch: int = 0, device="cuda"):
         super().__init__()
         if model not in self.MODELS:
             raise ValueError(f"unknown StyleGAN2 model {model!r}")
@@ -357,7 +438,8 @@ class StyleGAN2(nn.Module):
         self.generator = StyleGAN2Generator(
             self.im_res, channel_multiplier=channel_multiplier, dtype=dtype,
             fused_mod_bwd=fused_mod_bwd, fir_kernel=fir_kernel,
-            remat_from_res=remat_from_res)
+            remat_from_res=remat_from_res,
+            pack_pairs_max_ch=pack_pairs_max_ch)
 
         if params is None and pretrained_path:
             if str(pretrained_path).endswith(".npz"):

@@ -3,13 +3,16 @@
 Each source under ``pix2latent_tpu_torch/csrc/`` becomes one shared library
 with a plain C interface, compiled for Hopper (``sm_90a``) at first use and
 cached under ``pix2latent_tpu_torch/_build/`` by a hash of the source and the
-flags. Nothing here runs at import time; the CPU paths never call it.
+flags. Nothing here runs at import time; the CPU paths never call it. Each
+build is logged at INFO level on this module's logger
+(``utils/profiling.log_compiles`` prints them).
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import logging
 import os
 import shutil
 import subprocess
@@ -25,6 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_log = logging.getLogger(__name__)
 
 
 def nvcc_path() -> str:
@@ -55,13 +59,14 @@ def _start(source: str):
     fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
     os.close(fd)
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / source)]
+    _log.info("nvcc: building %s -> %s", source, out.name)
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
-    return proc, tmp, out
+    return proc, tmp, out, time.perf_counter()
 
 
 def _finish(source: str, started) -> str:
-    proc, tmp, out = started
+    proc, tmp, out, t0 = started
     log, _ = proc.communicate()
     try:
         if proc.returncode != 0:
@@ -69,6 +74,8 @@ def _finish(source: str, started) -> str:
                                f"(exit {proc.returncode}):\n{log}")
         out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
+        _log.info("nvcc: built %s in %.1f s", source,
+                  time.perf_counter() - t0)
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)

@@ -1,18 +1,94 @@
-"""Console, conversion and timing helpers (counterpart of
-``pix2latent_tpu/utils/misc.py``, the parts the drivers use)."""
+"""Console, seed, precision, conversion and timing helpers (counterpart of
+``pix2latent_tpu/utils/misc.py``)."""
 
 from __future__ import annotations
 
+import os
+import sys
 import time
 
 import numpy as np
 import torch
+
+from pix2latent_tpu_torch.utils.device import resolve_device
 
 _COLORS = {
     "r": "\033[91m", "g": "\033[92m", "y": "\033[93m",
     "b": "\033[94m", "m": "\033[95m", "c": "\033[96m",
 }
 _END = "\033[0m"
+
+
+_PRECISIONS = {"half": torch.bfloat16, "bfloat16": torch.bfloat16,
+               "float": torch.float32, "float32": torch.float32,
+               "double": torch.float64}
+
+
+def set_seed(seed: int) -> torch.Generator:
+    """Seed numpy's global generator and return a ``torch.Generator``
+    seeded the same (where the JAX package returns a PRNG key); the port's
+    draws take an explicit generator."""
+    np.random.seed(seed)
+    return torch.Generator().manual_seed(int(seed))
+
+
+def to_onehot(idx, num_classes=1000, device="cpu"):
+    """An integer or a list of them as a float32 one-hot tensor
+    ``[n, num_classes]``."""
+    idx = np.atleast_1d(np.asarray(idx, np.int64))
+    out = torch.zeros((idx.size, num_classes), dtype=torch.float32)
+    out[torch.arange(idx.size), torch.as_tensor(idx)] = 1.0
+    return out.to(resolve_device(device))
+
+
+def set_model_precision(params, precision="float"):
+    """Floating tensors cast to ``precision``: ``"half"`` (bfloat16, as in
+    the JAX package, not float16), ``"float"`` or ``"double"``. ``params``
+    is an ``nn.Module`` (cast in place and returned) or a tensor tree of
+    dicts, lists and tuples (a new tree); other leaves pass through."""
+    dtype = _PRECISIONS[precision]
+    if isinstance(params, torch.nn.Module):
+        return params.to(dtype)
+    if isinstance(params, dict):
+        return {k: set_model_precision(v, precision)
+                for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return type(params)(set_model_precision(v, precision)
+                            for v in params)
+    if isinstance(params, torch.Tensor) and params.is_floating_point():
+        return params.to(dtype)
+    return params
+
+
+def prepare_variables(variables, precision="float", device="cuda"):
+    """:func:`set_model_precision`, then every tensor of the tree (numpy
+    arrays become tensors) moved to ``device`` (default the card)."""
+    device = resolve_device(device)
+
+    def place(tree):
+        if isinstance(tree, dict):
+            return {k: place(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(place(v) for v in tree)
+        if isinstance(tree, np.ndarray):
+            tree = torch.from_numpy(tree)
+        return tree.to(device) if isinstance(tree, torch.Tensor) else tree
+
+    return set_model_precision(place(variables), precision)
+
+
+class HiddenPrints:
+    """Standard output discarded inside the ``with`` block."""
+
+    def __enter__(self):
+        self._stdout = sys.stdout
+        sys.stdout = open(os.devnull, "w")
+        return self
+
+    def __exit__(self, exc_type, exc_val, exc_tb):
+        sys.stdout.close()
+        sys.stdout = self._stdout
+        return False
 
 
 def to_numpy(x):

@@ -106,6 +106,16 @@ def jax_to_torch_array(path: str, arr: np.ndarray) -> np.ndarray:
     return arr
 
 
+def torch_to_jax_array(path: str, arr: np.ndarray) -> np.ndarray:
+    """Inverse of :func:`jax_to_torch_array` (``path`` the JAX one)."""
+    if path.split(_SEP)[-1] == "kernel":
+        if arr.ndim == 4:
+            return arr.transpose(2, 3, 1, 0)
+        if arr.ndim == 2:
+            return arr.T
+    return arr
+
+
 def jax_shape(name: str, shape: Tuple[int, ...]) -> Tuple[int, ...]:
     """The JAX-layout shape of the port's parameter ``name``."""
     if name.split(".")[-1] == "weight":
@@ -137,6 +147,16 @@ def _sg2_to_torch_array(path: str, arr: np.ndarray) -> np.ndarray:
     return arr
 
 
+def _sg2_to_jax_array(path: str, arr: np.ndarray) -> np.ndarray:
+    if arr.ndim == 2:
+        return arr.T
+    if arr.ndim == 4:
+        if path.split(_SEP)[-1] == "weight":
+            return arr.transpose(2, 3, 1, 0)          # OIHW -> HWIO
+        return arr.transpose(0, 2, 3, 1)              # NCHW -> NHWC
+    return arr
+
+
 def _sg2_jax_shape(name: str, shape: Tuple[int, ...]) -> Tuple[int, ...]:
     if len(shape) == 2:
         return (shape[1], shape[0])
@@ -154,12 +174,13 @@ class Layout(NamedTuple):
     to_jax_name: Callable[[str, int], str]
     to_torch_array: Callable[[str, np.ndarray], np.ndarray]
     jax_shape: Callable[[str, Tuple[int, ...]], Tuple[int, ...]]
+    to_jax_array: Callable[[str, np.ndarray], np.ndarray]
 
 
 FLAX_KERNELS = Layout(jax_to_torch_name, torch_to_jax_name,
-                      jax_to_torch_array, jax_shape)
+                      jax_to_torch_array, jax_shape, torch_to_jax_array)
 STYLEGAN2 = Layout(_sg2_torch_name, _sg2_jax_name, _sg2_to_torch_array,
-                   _sg2_jax_shape)
+                   _sg2_jax_shape, _sg2_to_jax_array)
 
 
 def from_jax_params(flat: Dict[str, np.ndarray],
@@ -168,6 +189,19 @@ def from_jax_params(flat: Dict[str, np.ndarray],
     the same tree (see the module docstring for the layout rules)."""
     return {layout.to_torch_name(k): torch.tensor(layout.to_torch_array(k, v))
             for k, v in flat.items()}
+
+
+def to_jax_params(module: torch.nn.Module,
+                  layout: Layout = FLAX_KERNELS) -> Dict[str, np.ndarray]:
+    """``module``'s parameters as the flat JAX parameter dict that
+    :func:`from_jax_params` maps back (float32 numpy, JAX layouts), for
+    :func:`save_params_npz`."""
+    out = {}
+    for name, p in module.named_parameters():
+        path = layout.to_jax_name(name, p.dim())
+        out[path] = layout.to_jax_array(
+            path, p.detach().float().cpu().numpy())
+    return out
 
 
 def sorted_jax_leaves(module: torch.nn.Module, layout: Layout = FLAX_KERNELS):

@@ -42,6 +42,23 @@ def num_samples(variables: Variables) -> int:
     raise ValueError("empty Variables")
 
 
+def split_vars(variables: Variables, size: int):
+    """A Variables dict cut along the population dimension into chunks of
+    at most ``size`` samples (views of its tensors)."""
+    n = num_samples(variables)
+    return [{vt: {name: t[i:i + size] for name, t in d.items()}
+             for vt, d in variables.items()}
+            for i in range(0, n, size)]
+
+
+def stack_splits(chunks):
+    """Inverse of :func:`split_vars`: the chunks concatenated along the
+    population dimension."""
+    return {vt: {name: torch.cat([c[vt][name] for c in chunks], dim=0)
+                 for name in d}
+            for vt, d in chunks[0].items()}
+
+
 def save_variables(save_path, variables, extras: Optional[dict] = None):
     """Write a Variables dict (plus optional extras) as a pickled ``.npy``
     payload, at exactly ``save_path`` (``np.save`` given a path would append

@@ -9,6 +9,7 @@ setup(
     packages=find_packages(exclude=("tests", "examples")),
     package_data={"pix2latent_tpu": ["utils/data/*.json.gz"],
                   "pix2latent_tpu_torch": ["csrc/*.cu", "csrc/*.cuh",
+                                           "utils/data/*.json.gz",
                                            "native/*.cpp"]},
     python_requires=">=3.10",
     install_requires=[
