@@ -247,6 +247,22 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    1e-4 of the largest gradient), bfloat16 within rel 2e-2 (each layer's
    bf16 rounding meets a different summation order), equal K2 counts and
    no K3 launch.
+22. ``sharded_path``: ``examples/invert_biggan_basincma_sharded.main
+   --smoke`` (2 x 4 + 8), BigGAN-deep-256 at full width in float32,
+   population 18, in this process with ``RANK=0 WORLD_SIZE=1 LOCAL_RANK=0
+   MASTER_ADDR=127.0.0.1 MASTER_PORT=<a free port>``, as ``torchrun
+   --nproc_per_node=1`` sets them, so ``initialize_multihost`` makes an
+   NCCL group through ``env://`` and every gather of the population mesh
+   runs over NCCL. Checks: the backend is NCCL at world size 1, 18 samples,
+   exact K1 f32 counts (one forward a step and a tell and the target's, one
+   backward a step), exact gathers (one a generation, then the final z, c,
+   images and losses and the tracked z and c), finite tell losses and the
+   final loss below generation 0's. Then one generation (4 inner steps and
+   the tell) of the same problem from one seed twice, on the mesh and
+   without one, under PyTorch's deterministic algorithms (as
+   ``utils/flagship.compare_drivers``): the tell losses within rel 1e-6.
+   Prints images/s and peak memory; the process group is destroyed
+   whatever happens.
 
 Then a ``done`` line with the script's seconds, the ``{"kernels": [...]}``
 line (each K2 and K3 entry three times: at the cars path's shapes with
@@ -261,7 +277,8 @@ bfloat16 ``_batched`` at [36, 4096, 1024, 64, 256] with ``batched_path``'s,
 ``transform_batched_path``'s; float32 ``_f32_hybrid_ng`` and
 ``_f32_ng_eval`` at [18, ...] with ``ng_hybrid_path``'s and
 ``ng_evalonly_path``'s; ``_f32_edit``, the forward alone, at [1, ...] with
-``edit_path``'s; K2 and K3 a third time, ``_f32``, float32 at the cars
+``edit_path``'s; ``_f32_sharded`` at [18, ...] with ``sharded_path``'s;
+K2 and K3 a third time, ``_f32``, float32 at the cars
 shapes with ``cars_ng_path``'s, which ``load_stylegan2`` built: each K2 and
 K3 entry names its loader in ``launched_by``), the card's ``nvidia-smi``
 line and the result line.
@@ -271,6 +288,7 @@ package beside it.
 
 import argparse
 import json
+import os
 import shutil
 import statistics
 import subprocess
@@ -347,6 +365,9 @@ CARS_NG_SCHEDULE = (2, 10, 30)
 # against 0.467); after 30 and 50 it was below (0.349 against 0.452, 0.280
 # against 0.540)
 FFHQ_ENTRY_SCHEDULE = (1, 10, 50)
+# the sharded entry point's tell losses on the mesh against without one,
+# one generation under deterministic algorithms
+SHARDED_TELL_RTOL = 1e-6
 # the edit example's GANSpace defaults (the reference's): feature rows and
 # components. The card's components against the CPU's on the same draws,
 # sign-aligned: component i within EDIT_COMPONENT_ATOL x max(1, EDIT_GAP /
@@ -2633,6 +2654,135 @@ def phase_pack_pairs_step():
         assert case["mod_backward_launches"] == [0, 0], case
     return res
 
+def _free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _sharded_vs_plain(opt, steps):
+    """One generation (``steps`` inner steps and the tell) of ``opt``'s
+    problem from seed 0, on a mesh of this process group and without one,
+    under PyTorch's deterministic algorithms (the setting of
+    ``utils/flagship.compare_drivers``, restored after): the two tell
+    losses."""
+    import torch
+    from pix2latent_tpu_torch.optimizers import BasinCMAOptimizer
+    from pix2latent_tpu_torch.parallel import make_mesh
+
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark,
+             torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        tells = []
+        for mesh in (make_mesh(devices="cuda"), None):
+            o = BasinCMAOptimizer(opt.model, opt.var_manager, opt.loss_fn,
+                                  max_batch_size=opt.max_batch_size,
+                                  mesh=mesh, seed=0, device=opt.device)
+            o.setup_cma(o.var_manager)
+            loss, _ = o.refine_and_tell(o._ask_population(), steps, 0)
+            tells.append(loss.cpu())
+        return tells
+    finally:
+        torch.backends.cudnn.deterministic = saved[0]
+        torch.backends.cudnn.benchmark = saved[1]
+        torch.use_deterministic_algorithms(saved[2], warn_only=saved[3])
+
+
+def phase_sharded_path():
+    """``examples/invert_biggan_basincma_sharded.main`` over NCCL at world
+    size 1, then one generation on the mesh against without one; see the
+    module docstring."""
+    import math
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from pix2latent_tpu_torch.examples import \
+        invert_biggan_basincma_sharded as ex
+    from pix2latent_tpu_torch.parallel import mesh as PM
+
+    gens, steps, final_steps = ex.schedule(argparse.Namespace(smoke=True))
+    full = ex.schedule(argparse.Namespace(smoke=False))
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(_free_port())}
+    before = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    t_start = time.perf_counter()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            argv = ["--smoke", "--device", "cuda", "--save_dir",
+                    str(Path(tmp) / "out")]
+            PM.reset_gather_counts()
+            opt, counts, seconds, peak, _ = _run_entry_point(
+                ex, "BasinCMAOptimizer", (gens, steps, final_steps), argv)
+            gathers = PM.gather_counts()
+            backend, world = dist.get_backend(), dist.get_world_size()
+            result = dict(np.load(Path(tmp) / "out" / "result.npz"))
+        on_mesh, plain = _sharded_vs_plain(opt, steps)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in before.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    tell_mins = [float(v) for v in result["tell_min"]]
+    final_min = float(result["loss"].min())
+    gen_s = statistics.mean(opt.gen_seconds[1:] or opt.gen_seconds)
+    # one forward a step and a tell, and the target's; one backward a step
+    expect = {"fwd": gens * (steps + 1) + final_steps + 1,
+              "bwd": gens * steps + final_steps}
+    # one a generation (the tell losses), then the final z and c, images
+    # and losses, and the host loop's tracked z and c
+    expect_gathers = gens + 6
+    rel = float(((on_mesh - plain).abs()
+                 / plain.abs().clamp_min(1e-30)).max())
+    res = {
+        "phase": "sharded_path", "model": "biggan-deep-256",
+        "entry_point": ("pix2latent_tpu_torch/examples/"
+                        "invert_biggan_basincma_sharded.py"),
+        "backend": backend, "world_size": world,
+        "channel_width": opt.model.generator.ch, "dtype": "float32",
+        "population": opt.num_samples, "generations": gens,
+        "grad_steps": steps, "final_steps": final_steps,
+        "schedule": (f"{gens} x {steps} + {final_steps} (--smoke; the "
+                     f"example: {full[0]} x {full[1]} + {full[2]})"),
+        "seconds": seconds, "gen_seconds": opt.gen_seconds,
+        "seconds_per_generation": gen_s,
+        "images_per_sec": opt.num_samples * steps / gen_s,
+        "peak_memory_bytes": peak,
+        "tell_min_per_generation": tell_mins, "final_min_loss": final_min,
+        "attention_launches": counts, "expected_launches": expect,
+        "gathers": gathers, "expected_gathers": expect_gathers,
+        "mesh_vs_plain_tell_max_rel": rel,
+        "mesh_vs_plain_bitwise": bool(torch.equal(on_mesh, plain)),
+        "nvidia_smi": smi_line(),
+        "phase_seconds": time.perf_counter() - t_start}
+    emit(res)
+    assert backend == "nccl" and world == 1, (backend, world)
+    assert opt.num_samples == POP, opt.num_samples
+    assert res["channel_width"] == 128, res["channel_width"]
+    assert len(tell_mins) == gens, tell_mins
+    assert all(math.isfinite(v) for v in tell_mins), tell_mins
+    assert math.isfinite(final_min) and final_min < tell_mins[0], (
+        f"no convergence: first generation {tell_mins[0]}, final {final_min}")
+    assert counts == expect, (counts, expect)
+    assert gathers["gathers"] == expect_gathers, (gathers, expect_gathers)
+    assert on_mesh.shape == plain.shape == (POP,)
+    assert bool(torch.isfinite(on_mesh).all())
+    assert rel <= SHARDED_TELL_RTOL, (
+        f"the mesh's tell losses are {rel} off the plain run's")
+    return counts
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     # the flagship's 30 generations + 300 final steps cut to 20 + 100, and
@@ -2703,6 +2853,7 @@ def _run_phases(args, t0, work):
     phase_ffhq_entry_path(work)
     edit_counts = phase_edit_path(biggan_results, work)
     phase_pack_pairs_step()
+    sharded_counts = phase_sharded_path()
 
     def timed(kernel, path, dtype="bfloat16", shape=FLAGSHIP):
         """The timed case at the path's shape."""
@@ -2749,6 +2900,9 @@ def _run_phases(args, t0, work):
             ("sagan_attention", "edit", "_f32_edit",
              {"fwd": edit_counts["fwd"]}, "sagan_attention.cu",
              {"fwd": "attention.py:131"}),
+            ("sagan_attention", "sharded", "_f32_sharded", sharded_counts,
+             "sagan_attention.cu",
+             {"fwd": "attention.py:131", "bwd": "attention.py:154"}),
             ("fir_blur", "main", "", {"fwd": sg2_counts["fir_blur_fwd"],
                                       "bwd": sg2_counts["fir_blur_bwd"]},
              "fir_blur.cu", {"fwd": "pallas_fir.py:108",
@@ -2768,7 +2922,7 @@ def _run_phases(args, t0, work):
         elif path == "edit":                    # one sample
             case = timed(kernel, "main", "float32", EDIT)
         elif path in ("biggan_f32_path", "transform_latent", "real_input",
-                      "ng_hybrid", "ng_eval",               # K1 f32, pop 18
+                      "ng_hybrid", "ng_eval", "sharded",    # K1 f32, pop 18
                       "cars_ng"):               # K2 f32 at the cars shape
             case = timed(kernel, "main", "float32")
         elif path in ("batched", "transform_batched_latent"):   # 36 rows

@@ -28,6 +28,15 @@ entering a segment (variables, optimizer state, the generator's state,
 steps done) is saved, so a crashed run resumes on its own trajectory. The
 steps draw from the generator in order, so a segmented run is the
 unsegmented run step for step.
+
+With a ``mesh`` (``parallel/mesh.py``) of more than one rank, each rank
+holds its own block of the population's rows (:meth:`ExecutionCore.place`
+takes them from the full population): the hooks draw at the full
+population size and keep the rank's rows, a chunk's gradient is scaled by
+``chunk / (the whole population)``, and :meth:`ExecutionCore.tell_loss`
+gathers the rows' losses into the full population's. A checkpoint holds
+the full population, written by rank 0 and split again when loaded, so a
+run resumes on any number of ranks.
 """
 
 from __future__ import annotations
@@ -39,6 +48,8 @@ import numpy as np
 import torch
 
 from pix2latent_tpu_torch.models.base import as_model
+from pix2latent_tpu_torch.parallel.mesh import (gather_rows, max_rows,
+                                                replicate, shard_variables)
 from pix2latent_tpu_torch.utils.checkpoint import (checkpoint_exists,
                                                    load_checkpoint,
                                                    save_checkpoint)
@@ -114,12 +125,13 @@ class ExecutionCore:
     """Runs the inner steps and the tell evaluations of one problem."""
 
     def __init__(self, model, var_manager: VariableManager, loss_fn: Callable,
+                 mesh=None, track_variables: bool = False,
                  max_batch_size: Optional[int] = None,
-                 track_variables: bool = False,
                  segment_steps: Optional[int] = 50):
         self.model = as_model(model)
         self.var_manager = var_manager
         self.loss_fn = loss_fn
+        self.mesh = mesh
         self.max_batch_size = max_batch_size
         self.track_variables = track_variables
         self.segment_steps = segment_steps
@@ -170,14 +182,18 @@ class ExecutionCore:
             return variables
         out = {vt: dict(d) for vt, d in variables.items()}
         for name, data in outputs.items():
-            spec = info[name]
-            if (spec["default"] is not None and not spec["requires_grad"]
-                    and spec["hook_fn"] is None
-                    and name not in self.transform_fns
-                    and name not in self.per_group_outputs
-                    and data.shape[0] != 1):
+            if self._shared_output(name) and data.shape[0] != 1:
                 out["output"][name] = data[:1]
         return out
+
+    def _shared_output(self, name) -> bool:
+        """An output variable constant over the population: a default, no
+        gradient, no hook, no transform, the same for every group."""
+        spec = self.var_manager.variable_info[name]
+        return (spec["var_type"] == "output" and spec["default"] is not None
+                and not spec["requires_grad"] and spec["hook_fn"] is None
+                and name not in self.transform_fns
+                and name not in self.per_group_outputs)
 
     def _freeze(self, variables: Variables) -> Variables:
         """Detach every requires_grad=False variable, so autograd never
@@ -222,10 +238,17 @@ class ExecutionCore:
         accumulate into the variables' ``.grad``. Returns the detached
         ``(per-sample losses [pop], images)``."""
         chunks, chunk, pop = self._chunks(variables, ctx)
+        # the gradient of the mean over the WHOLE population: on a mesh
+        # each rank holds pop rows of it, and no gradient is reduced across
+        # ranks, which is exact only while every row's loss depends on that
+        # row alone (per-row variables, BigGAN's standing BatchNorm
+        # statistics, per-sample losses); a cross-row statistic would need
+        # an all-reduce here
+        total = pop * (self.mesh.size if self.mesh is not None else 1)
         losses, outs = [], []
         for real, v, c in chunks:
             loss, per_sample, out = self._forward_loss(v, c)
-            (loss * (chunk * groups / pop)).backward()
+            (loss * (chunk * groups / total)).backward()
             losses.append(per_sample[:real].detach())
             outs.append(out[:real].detach())
         return _cat(losses), _cat(outs)
@@ -264,9 +287,20 @@ class ExecutionCore:
                      for vt, d in variables.items()}
         return variables, self.var_manager.make_optimizer(variables)
 
+    def _sharded(self) -> bool:
+        return self.mesh is not None and self.mesh.size > 1
+
     def _apply_hooks(self, generator, variables: Variables, step) -> Variables:
         """The variables with the registered hooks applied; with a list of
-        generators, each population's rows from its own generator."""
+        generators, each population's rows from its own generator. On a
+        mesh of several ranks the hooks run on the full population, this
+        rank's rows at their place and zeros elsewhere, so every rank draws
+        what a run without a mesh draws, and keep this rank's rows."""
+        if self._sharded():
+            return self._apply_hooks_sharded(generator, variables, step)
+        return self._apply_hooks_whole(generator, variables, step)
+
+    def _apply_hooks_whole(self, generator, variables: Variables, step):
         if not isinstance(generator, (list, tuple)):
             return self.var_manager.apply_hooks(generator, variables, step)
         hooked = {n for n, spec in self.var_manager.variable_info.items()
@@ -283,6 +317,23 @@ class ExecutionCore:
             for name in d:
                 out[vt][name] = torch.cat([p[vt][name] for p in parts])
         return out
+
+    def _apply_hooks_sharded(self, generator, variables: Variables, step):
+        mesh = self.mesh
+        per = max_rows(variables)
+        pop = per * mesh.size
+        hooked = {n for n, spec in self.var_manager.variable_info.items()
+                  if spec["hook_fn"] is not None}
+        full = {vt: {name: (mesh.embed(t, pop) if name in hooked
+                            and t.dim() and t.shape[0] == per else t)
+                     for name, t in d.items()}
+                for vt, d in variables.items()}
+        full = self._apply_hooks_whole(generator, full, step)
+        return {vt: {name: (mesh.local(full[vt][name], pop)
+                            if name in hooked and t.dim()
+                            and t.shape[0] == per else t)
+                     for name, t in d.items()}
+                for vt, d in variables.items()}
 
     def _hook_in_place(self, generator, variables: Variables, step) -> Variables:
         hooked = self._apply_hooks(generator, variables, step)
@@ -373,12 +424,17 @@ class ExecutionCore:
         the loss (its hook draw is one the uninterrupted run did not make).
         Tracked variables are read to the host after each segment."""
         done = 0
-        if checkpoint_exists(ckpt_path):
+        found = checkpoint_exists(ckpt_path)
+        if ckpt_path and self.mesh is not None:
+            self.mesh.barrier()       # every rank looked before rank 0 writes
+        if found:
             saved = load_checkpoint(ckpt_path, self._carry(
                 variables, optimizer, generator, 0, template=True))
             done = int(saved["done"])
-            variables = self._restore(variables, saved["variables"])
-            optimizer.load_state(saved["optimizer"])
+            pop = max_rows(saved["variables"])
+            variables = self._restore(variables, self.place(
+                saved["variables"], pop))
+            optimizer.load_state(self.place(saved["optimizer"], pop))
             generator.set_state(saved["generator"])
             cprint(f"(checkpoint) resumed gradient run at step {done}"
                    f"/{n_steps}", "y")
@@ -390,8 +446,8 @@ class ExecutionCore:
         losses, tracked, out = [], [], None
         for si, s0 in enumerate(range(done, n_steps, seg)):
             if ckpt_path and si % ckpt_every == 0:
-                save_checkpoint(ckpt_path, self._carry(
-                    variables, optimizer, generator, s0))
+                self._save_carry(ckpt_path, variables, optimizer, generator,
+                                 s0)
             variables, optimizer, out, ys = self._run_steps(
                 variables, optimizer, generator, min(seg, n_steps - s0),
                 start_step + s0, ctx, track)
@@ -400,13 +456,25 @@ class ExecutionCore:
                 tracked.append({k: to_numpy(v)
                                 for k, v in ys["tracked"].items()})
         if ckpt_path:
-            save_checkpoint(ckpt_path, self._carry(
-                variables, optimizer, generator, n_steps))
+            self._save_carry(ckpt_path, variables, optimizer, generator,
+                             n_steps)
         ys = {"loss": torch.cat(losses)}
         if track:
             ys["tracked"] = {k: np.concatenate([t[k] for t in tracked])
                              for k in tracked[0]}
         return variables, optimizer, out, ys
+
+    def _save_carry(self, path, variables, optimizer, generator, done):
+        """Write the carry of the full population: on a mesh, the rows of
+        every rank gathered, written by rank 0."""
+        carry = self._carry(variables, optimizer, generator, done)
+        if self.mesh is not None:
+            rows = max_rows(variables)
+            carry["variables"] = self.gather_variables(variables)
+            carry["optimizer"] = gather_rows(carry["optimizer"], self.mesh,
+                                             rows)
+        if self.mesh is None or self.mesh.is_writer:
+            save_checkpoint(path, carry)
 
     def _restore(self, variables: Variables, saved: Variables) -> Variables:
         """``variables`` with the saved values: copied into the optimizer's
@@ -433,7 +501,8 @@ class ExecutionCore:
     def tell_loss(self, variables: Variables, generator, step=0,
                   inverted=True, ctx=None, originals=None):
         """Fresh per-sample loss for the CMA tell: hooks applied to a copy,
-        then a forward without gradients. With ``inverted`` and a registered
+        then a forward without gradients; on a mesh, every rank's rows
+        gathered into the whole population's. With ``inverted`` and a registered
         transform of the target (its parameter a ``transform`` variable),
         the loss is taken in the un-warped frame (:meth:`_unwarped_loss`,
         where ``originals`` are the populations' own un-warped targets),
@@ -444,10 +513,11 @@ class ExecutionCore:
             if not (inverted and self.transform_fns
                     and "transform" in variables):
                 per_sample, _ = self._eval_chunked(variables, ctx)
-                return per_sample
+                return self.gather(per_sample)
             outs = [self.model(**self._freeze(v).get("input", {}))[:real]
                     for real, v, _ in self._chunks(variables, None)[0]]
-            return self._unwarped_loss(variables, _cat(outs), originals)
+            return self.gather(
+                self._unwarped_loss(variables, _cat(outs), originals))
 
     def _unwarped_loss(self, variables: Variables, out, originals=None):
         """Per-sample loss of the images ``out`` taken back to the original
@@ -456,7 +526,8 @@ class ExecutionCore:
         binarized default. ``originals``, ``{"target": [G, H, W, C],
         "weight": optional [G, H, W, C]}``, gives G populations of equal
         size their own un-warped target and weight in place of the
-        registered defaults."""
+        registered defaults. On a mesh ``out`` holds this rank's rows of
+        the populations, each row scored against its own population's."""
         info = self.var_manager.variable_info
         td = self.transform_fns["target"]
         param = td["transform_param"]
@@ -467,14 +538,61 @@ class ExecutionCore:
             if "weight" in info and info["weight"]["default"] is not None:
                 originals["weight"] = info["weight"]["default"][None]
         groups = originals["target"].shape[0]
-        rows = out.shape[0] // groups
+        total = out.shape[0] * (self.mesh.size if self.mesh is not None
+                                else 1)
+        mine = self.mesh.rows(total) if self.mesh is not None else range(total)
+        rows = total // groups
         losses = []
         for i in range(groups):
+            # the rows of population i that this rank holds
+            lo = max(i * rows, mine.start) - mine.start
+            hi = min((i + 1) * rows, mine.stop) - mine.start
+            if lo >= hi:
+                continue
             kwargs = {}
             if originals.get("weight") is not None:
                 kwargs["weight"] = binarize(originals["weight"][i:i + 1])
-            loss_map = self.loss_fn(out_inv[i * rows:(i + 1) * rows],
+            loss_map = self.loss_fn(out_inv[lo:hi],
                                     target=originals["target"][i:i + 1],
                                     **kwargs)
-            losses.append(loss_map.reshape(rows, -1).mean(dim=1))
+            losses.append(loss_map.reshape(hi - lo, -1).mean(dim=1))
         return _cat(losses)
+
+    # ------------------------------------------------------------------ #
+    # sharding                                                           #
+    # ------------------------------------------------------------------ #
+
+    def place(self, variables, pop: Optional[int] = None):
+        """This rank's rows of a full population (of ``pop`` rows, default
+        the most any tensor has); the tree itself without a mesh."""
+        if self.mesh is None:
+            return variables
+        return shard_variables(variables, self.mesh, pop=pop)
+
+    # a population made during a generation is placed the same way
+    place_in_graph = place
+
+    def place_replicated(self, tree):
+        """``tree`` as rank 0 holds it, on every rank (set-up only)."""
+        if self.mesh is None:
+            return tree
+        return replicate(tree, self.mesh)
+
+    def gather(self, t):
+        """Every rank's rows of ``t``; ``t`` itself without a mesh."""
+        return t if self.mesh is None else self.mesh.gather(t)
+
+    def gather_variables(self, variables: Variables) -> Variables:
+        """Every rank's rows of ``variables`` gathered into the whole
+        population's (the end of a run, a checkpoint); a shared output of
+        one row stays as it is. The tree itself without a mesh."""
+        if self.mesh is None:
+            return variables
+        rows = max_rows(variables)
+        return {vt: {name: (self.mesh.gather(t) if t.dim()
+                            and t.shape[0] == rows
+                            and not (t.shape[0] == 1
+                                     and self._shared_output(name))
+                            else t)
+                     for name, t in d.items()}
+                for vt, d in variables.items()}

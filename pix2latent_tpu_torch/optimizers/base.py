@@ -4,6 +4,11 @@ random stream, transform registration, tracked variables, the inner
 gradient run, logging of loss curves and collage frames, and the result
 convention. The compute runs in :class:`ExecutionCore`; this layer moves
 results to the host between runs.
+
+On a population mesh (``parallel/mesh.py``) a rank computes its own rows;
+the results (the final variables, images and losses, the tracked
+variables, a logged frame) are gathered, so every rank returns what a run
+without a mesh returns.
 """
 
 from __future__ import annotations
@@ -14,7 +19,7 @@ import numpy as np
 import torch
 
 from pix2latent_tpu_torch.core.step import ExecutionCore
-from pix2latent_tpu_torch.utils.device import resolve_device
+from pix2latent_tpu_torch.utils.device import resolve_device, same_device
 from pix2latent_tpu_torch.utils.image import smart_resize, to_grid, to_image
 from pix2latent_tpu_torch.utils.misc import progress_print, to_numpy
 from pix2latent_tpu_torch.variables import VariableManager
@@ -34,27 +39,37 @@ class _BaseOptimizer:
             steps (``self.losses``, ``self.outs``).
         track_variables: keep the input variables after every step of the
             host-loop drivers' inner runs (``self.tracked``).
+        mesh: a ``parallel.mesh.Mesh`` to split the population over, one
+            rank per card; the drivers pad their populations to a multiple
+            of its ranks.
         seed: seed of this optimizer's ``torch.Generator`` (the JAX
             package's key stream).
         segment_steps: gradient runs longer than this go by segments of
             this many steps (``core/step.py``); None disables.
-        device: must be the variable manager's device.
+        device: must be the variable manager's device (and the mesh's);
+            None takes the mesh's, or ``"cuda"`` without one.
     """
 
     def __init__(self, model, var_manager: VariableManager, loss_fn,
                  max_batch_size: Optional[int] = None, log: bool = False,
-                 track_variables: bool = True, seed: int = 0,
-                 segment_steps: Optional[int] = 50, device="cuda"):
+                 track_variables: bool = True, mesh=None, seed: int = 0,
+                 segment_steps: Optional[int] = 50, *, device=None):
+        if device is None:
+            device = mesh.device if mesh is not None else "cuda"
         self.device = resolve_device(device)
-        if var_manager.device != self.device:
+        if mesh is not None and not same_device(mesh.device, self.device):
+            raise ValueError(f"the mesh's device is {mesh.device}, not "
+                             f"{self.device}")
+        if not same_device(var_manager.device, self.device):
             raise ValueError(f"the variable manager lives on "
                              f"{var_manager.device}, not {self.device}")
         self.max_batch_size = max_batch_size
         self.var_manager = var_manager
         self.loss_fn = loss_fn
-        self.core = ExecutionCore(model, var_manager, loss_fn,
-                                  max_batch_size=max_batch_size,
+        self.mesh = mesh
+        self.core = ExecutionCore(model, var_manager, loss_fn, mesh=mesh,
                                   track_variables=track_variables,
+                                  max_batch_size=max_batch_size,
                                   segment_steps=segment_steps)
         self.model = self.core.model
         self.generator = torch.Generator(device=self.device)
@@ -165,16 +180,19 @@ class _BaseOptimizer:
         ``self.outs``: for images a uint8 collage, scaled by
         ``log_resize_factor`` when set. A non-image output is kept as it is
         and logs the loss, never the registered benchmark, which scores
-        images."""
-        out = to_numpy(self.out)
+        images. On a mesh, the frame and the loss of every rank's rows."""
+        out_t, loss = self.out, self.loss
+        if self.mesh is not None:
+            out_t, loss = self._gathered(out_t, loss)
+        out = to_numpy(out_t)
         if out.ndim != 4:
-            self.losses.append([int(step_iter), {"loss": np.asarray(self.loss)}])
+            self.losses.append([int(step_iter), {"loss": np.asarray(loss)}])
             self.outs.append(out)
             return
         if hasattr(self, "bm"):
-            res = self.benchmark(variables, self.out)
+            res = self.benchmark(variables, out_t)
         else:
-            res = {"loss": np.asarray(self.loss)}
+            res = {"loss": np.asarray(loss)}
         self.losses.append([int(step_iter), res])
         collage = to_image(to_grid(out))
         if self.log_resize_factor is not None:
@@ -188,8 +206,12 @@ class _BaseOptimizer:
         """``(variables, outs, losses)``: with logging, the logged frames and
         entries; else ``[collage]`` (``to_grid`` of the images, or the raw
         output when it is not an image batch) and
-        ``[[total_steps, {"loss": loss}]]``."""
+        ``[[total_steps, {"loss": loss}]]``. On a mesh, the variables, the
+        images and the losses of every rank's rows."""
         self._finalize_tracked()
+        if self.mesh is not None:
+            variables = self.core.gather_variables(variables)
+            self.out, self.loss = self._gathered(self.out, self.loss)
         if self.log:
             return variables, self.outs, self.losses
         out = to_numpy(self.out)
@@ -197,11 +219,23 @@ class _BaseOptimizer:
         return variables, [collage], [[total_steps,
                                        {"loss": np.asarray(self.loss)}]]
 
+    def _gathered(self, out, loss):
+        """``(images, losses as numpy)`` of every rank's rows."""
+        loss = torch.as_tensor(np.asarray(loss), device=self.mesh.device)
+        return self.mesh.gather(out), to_numpy(self.mesh.gather(loss))
+
     def _finalize_tracked(self):
         if self.track_variables and self.tracked:
             self.tracked = {name: np.concatenate(chunks, axis=0)
                             for name, chunks in self.tracked.items()
                             if isinstance(chunks, list)}
+            if self.mesh is not None:
+                # [steps, rows, ...]: every rank's rows, in rank order
+                self.tracked = {
+                    name: to_numpy(self.mesh.gather(torch.as_tensor(
+                        np.ascontiguousarray(np.swapaxes(arr, 0, 1)),
+                        device=self.mesh.device))).swapaxes(0, 1)
+                    for name, arr in self.tracked.items()}
 
     def optimize(self, *args, **kwargs):
         raise NotImplementedError

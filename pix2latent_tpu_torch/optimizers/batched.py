@@ -15,6 +15,12 @@ searches stay independent.
 the generation loop resumable with the one-behind protocol of the other
 fused drivers (``utils/checkpoint.py:FusedCheckpointer``) and the final Adam
 run resumable by segments from ``checkpoint_path + ".final"``.
+
+With a ``mesh`` (``parallel/mesh.py``) the ``[M*pop]`` rows are split over
+its ranks in order: every rank asks all M populations and draws every hook
+at the full row count, keeps its rows for the inner run, and the M tells of
+a generation read one gather of the rows' losses. The per-image population
+is padded to a multiple of the ranks, so every image's rows split too.
 """
 
 from __future__ import annotations
@@ -27,13 +33,16 @@ import torch
 
 from pix2latent_tpu_torch.core.step import _map_tensors, row_chunks
 from pix2latent_tpu_torch.models.base import as_model
+from pix2latent_tpu_torch.parallel.mesh import (gather_rows, max_rows,
+                                                pad_population, replicate,
+                                                shard_variables)
 from pix2latent_tpu_torch.strategies import cma
 from pix2latent_tpu_torch.utils.checkpoint import (FusedCheckpointer,
                                                    checkpoint_exists,
                                                    final_checkpoint,
                                                    load_checkpoint,
                                                    save_checkpoint)
-from pix2latent_tpu_torch.utils.device import resolve_device
+from pix2latent_tpu_torch.utils.device import resolve_device, same_device
 from pix2latent_tpu_torch.utils.image import binarize
 from pix2latent_tpu_torch.utils.misc import cprint, to_numpy
 from pix2latent_tpu_torch.variables import VariableOptimizer
@@ -62,13 +71,16 @@ class BatchedBasinCMAOptimizer:
         learnable_inputs: ``{name: lr}`` of further per-image inputs that
             Adam refines too (BigGAN's class embedding c at 0.01), their
             per-image starting values given to :meth:`optimize`.
-        popsize: population per image (default ``4 + floor(3 ln d)``).
+        popsize: population per image (default ``4 + floor(3 ln d)``),
+            padded to a multiple of the mesh's ranks.
         sigma: initial CMA step size.
         hook_fn: ``(generator, z, step) -> z`` applied to z before each step.
         seed: seed of the optimizer's ``torch.Generator``.
-        mesh: population sharding is not ported; must be None.
-        max_batch_size: rows a forward and backward takes at once.
-        device: the device of the model and the tensors.
+        mesh: a ``parallel.mesh.Mesh`` to split the rows over.
+        max_batch_size: rows a forward and backward takes at once (on each
+            rank of a mesh).
+        device: the device of the model and the tensors; None takes the
+            mesh's, or ``"cuda"`` without one.
     """
 
     def __init__(self, model, loss_fn, z_dim: int = 128,
@@ -76,17 +88,21 @@ class BatchedBasinCMAOptimizer:
                  learnable_inputs: Optional[Dict[str, float]] = None,
                  popsize: Optional[int] = None, sigma: float = 1.0,
                  hook_fn=None, seed: int = 0, mesh=None,
-                 max_batch_size: Optional[int] = None, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError("population sharding over a mesh is "
-                                      "not ported: pass mesh=None")
+                 max_batch_size: Optional[int] = None, device=None):
+        if device is None:
+            device = mesh.device if mesh is not None else "cuda"
         self.device = resolve_device(device)
+        if mesh is not None and not same_device(mesh.device, self.device):
+            raise ValueError(f"the mesh's device is {mesh.device}, not "
+                             f"{self.device}")
+        self.mesh = mesh
         self.model = as_model(model)
         self.loss_fn = loss_fn
         self.z_dim = int(z_dim)
         self.lr = float(learning_rate)
         self.learnable_inputs = dict(learnable_inputs or {})
-        self.popsize = int(popsize or cma.default_popsize(self.z_dim))
+        self.popsize = pad_population(
+            int(popsize or cma.default_popsize(self.z_dim)), mesh)
         self.sigma = float(sigma)
         self.hook_fn = hook_fn
         self.max_batch_size = max_batch_size
@@ -134,10 +150,11 @@ class BatchedBasinCMAOptimizer:
     def _chunks(self, learn, aux):
         """[(real rows, learn, aux)] of each chunk, and the scale of a
         chunk's mean loss that makes the chunks' gradients sum to the
-        gradient of the mean over all rows."""
+        gradient of the mean over all rows (every rank's: each row's loss
+        depends on its own row only, so no gradient crosses ranks)."""
         total = learn["z"].shape[0]
         chunks, chunk = row_chunks(total, self.max_batch_size, learn, aux)
-        return chunks, chunk / total
+        return chunks, chunk / (total * self._ranks())
 
     def _forward_backward(self, learn, aux):
         """Forward and backward of the mean loss over all rows, chunk by
@@ -151,10 +168,41 @@ class BatchedBasinCMAOptimizer:
         return torch.cat(losses)
 
     def _eval_chunked(self, learn, aux):
+        """The per-row losses of every rank's rows (one gather on a
+        mesh)."""
         with torch.no_grad():
             chunks, _ = self._chunks(learn, aux)
-            return torch.cat([self._eval_loss(lc, ac)[:real]
+            loss = torch.cat([self._eval_loss(lc, ac)[:real]
                               for real, lc, ac in chunks])
+        return loss if self.mesh is None else self.mesh.gather(loss)
+
+    # -- the mesh ---------------------------------------------------------- #
+
+    def _ranks(self) -> int:
+        return 1 if self.mesh is None else self.mesh.size
+
+    def _place(self, tree, rows):
+        """This rank's rows of the tensors of ``tree`` with ``rows``
+        leading rows."""
+        if self.mesh is None:
+            return tree
+        return shard_variables(tree, self.mesh, pop=rows)
+
+    def _gather(self, tree):
+        """Every rank's rows of ``tree``'s row tensors (this rank's rows of
+        the ``[M*pop]``)."""
+        if self.mesh is None:
+            return tree
+        return gather_rows(tree, self.mesh, max_rows(tree))
+
+    def _hook(self, z, step):
+        """The hook on every rank's rows, this rank's at their place, so
+        the draws are those of a run without a mesh; this rank's rows."""
+        if self._ranks() == 1:
+            return self.hook_fn(self.generator, z, step)
+        rows = z.shape[0] * self.mesh.size
+        full = self.hook_fn(self.generator, self.mesh.embed(z, rows), step)
+        return self.mesh.local(full, rows)
 
     # -- generations ------------------------------------------------------- #
 
@@ -186,12 +234,14 @@ class BatchedBasinCMAOptimizer:
         """The rows Adam refines, from the asked ``x [M, pop, d]`` and the
         per-image starting values of the learnable inputs, and their Adam
         (one parameter group, with its learning rate, a variable)."""
-        learn = {"z": x.reshape(-1, self.z_dim).detach().clone()}
+        rows = x.shape[0] * x.shape[1]
+        learn = {"z": self._place(x.reshape(-1, self.z_dim), rows)
+                 .detach().clone()}
         lrs = {"z": self.lr}
         for name, lr in self.learnable_inputs.items():
             if name in data["fixed"]:
-                learn[name] = data["fixed"][name].repeat_interleave(
-                    self.popsize, dim=0).detach().clone()
+                learn[name] = self._place(data["fixed"][name].repeat_interleave(
+                    self.popsize, dim=0), rows).detach().clone()
                 lrs[name] = lr
         for t in learn.values():
             t.requires_grad_(True)
@@ -205,8 +255,7 @@ class BatchedBasinCMAOptimizer:
         for i in range(n_steps):
             if self.hook_fn is not None:
                 with torch.no_grad():
-                    learn["z"].copy_(self.hook_fn(self.generator, learn["z"],
-                                                  start_step + i))
+                    learn["z"].copy_(self._hook(learn["z"], start_step + i))
             optimizer.zero_grad()
             self._forward_backward(learn, aux)
             optimizer.step()
@@ -233,12 +282,15 @@ class BatchedBasinCMAOptimizer:
         segments of ``final_segment_steps``, the per-row losses; no tell.
         With ``checkpoint_path`` the state entering each segment is saved
         there and a saved run resumes from it. Returns ``(learn, losses [M,
-        pop])``."""
+        pop])``: on a mesh, this rank's rows of ``learn`` and every rank's
+        losses."""
         m = states.mean.shape[0]
         x = cma.ask(self.cma_params, states, self.generator)
         learn, optimizer = self._init_learn(x, data)
         seg = final_segment_steps or last_grad_steps
         start = meta_steps * last_grad_steps
+
+        rows = m * self.popsize
 
         def carry(done, template=False):
             return {"learn": learn,
@@ -248,24 +300,37 @@ class BatchedBasinCMAOptimizer:
                     "done": (torch.zeros((), dtype=torch.int32) if template
                              else np.int32(done))}
 
+        def save(done):
+            # the file holds every rank's rows, written by rank 0
+            c = carry(done)
+            if self.mesh is not None:
+                c["learn"] = self._gather(c["learn"])
+                c["optimizer"] = gather_rows(c["optimizer"], self.mesh,
+                                             learn["z"].shape[0])
+            if self.mesh is None or self.mesh.is_writer:
+                save_checkpoint(checkpoint_path, c)
+
         done = 0
-        if checkpoint_exists(checkpoint_path):
+        found = checkpoint_exists(checkpoint_path)
+        if checkpoint_path and self.mesh is not None:
+            self.mesh.barrier()       # every rank looked before rank 0 writes
+        if found:
             saved = load_checkpoint(checkpoint_path, carry(0, template=True))
             with torch.no_grad():
-                for k, v in saved["learn"].items():
+                for k, v in self._place(saved["learn"], rows).items():
                     learn[k].copy_(v)
-            optimizer.load_state(saved["optimizer"])
+            optimizer.load_state(self._place(saved["optimizer"], rows))
             self.generator.set_state(saved["generator"])
             done = int(saved["done"])
             cprint(f"(batched basin-cma) resumed the final run at step "
                    f"{done}/{last_grad_steps}", "y")
         for s0 in range(done, last_grad_steps, seg):
             if checkpoint_path:
-                save_checkpoint(checkpoint_path, carry(s0))
+                save(s0)
             self._steps(learn, optimizer, aux,
                         min(seg, last_grad_steps - s0), start + s0)
         if checkpoint_path:
-            save_checkpoint(checkpoint_path, carry(last_grad_steps))
+            save(last_grad_steps)
         loss = self._eval_chunked(learn, aux).reshape(m, self.popsize)
         return learn, loss
 
@@ -317,6 +382,12 @@ class BatchedBasinCMAOptimizer:
         _, state0 = cma.init(np.zeros(self.z_dim), self.sigma, self.popsize,
                              device=self.device)
         states = cma.stack_states(state0, m)
+        if self.mesh is not None:
+            rep = replicate({"states": states,
+                             "generator": self.generator.get_state()},
+                            self.mesh)
+            states = rep["states"]
+            self.generator.set_state(rep["generator"])
 
         data = {"targets": targets, "fixed": fixed}
         if weights is not None:
@@ -336,10 +407,10 @@ class BatchedBasinCMAOptimizer:
                 if "tell_t" in data:
                     data["tell_ctx"] = self.loss_fn.precompute(
                         data.pop("tell_target"), data.pop("tell_weight", None))
-        aux = self._make_aux(data, m)
+        aux = self._place(self._make_aux(data, m), m * self.popsize)
 
         ckpt = FusedCheckpointer(checkpoint_path, "batched basin-cma",
-                                 every=checkpoint_every)
+                                 every=checkpoint_every, mesh=self.mesh)
         start = ckpt.resume({"states": states,
                              "generator": self.generator.get_state()})
         if ckpt.loaded is not None:
@@ -370,14 +441,15 @@ class BatchedBasinCMAOptimizer:
         learn, final_loss = self._run_final(
             states, data, aux, meta_steps, last_grad_steps,
             final_segment_steps,
-            final_checkpoint(checkpoint_path, start < meta_steps))
+            final_checkpoint(checkpoint_path, start < meta_steps, self.mesh))
+        learn = self._gather({k: v.detach() for k, v in learn.items()})
 
         loss = to_numpy(final_loss)
         loss = np.where(np.isfinite(loss), loss, np.inf)   # NaN samples lose
         best = torch.as_tensor(loss.argmin(axis=1), device=self.device)
         rows = torch.arange(m, device=self.device) * self.popsize + best
         result = {
-            "z": learn["z"].detach().index_select(0, rows),
+            "z": learn["z"].index_select(0, rows),
             "loss": torch.as_tensor(loss[np.arange(m), loss.argmin(axis=1)],
                                     device=self.device),
             "all_losses": loss,
@@ -387,7 +459,7 @@ class BatchedBasinCMAOptimizer:
         }
         for name in self.learnable_inputs:
             if name in learn:
-                result[name] = learn[name].detach().index_select(0, rows)
+                result[name] = learn[name].index_select(0, rows)
         inputs = {"z": result["z"]}
         for name, v in fixed.items():
             inputs[name] = result[name] if name in result else v

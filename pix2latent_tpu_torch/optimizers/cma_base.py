@@ -9,6 +9,12 @@ eval-only and hybrid drivers. A mixin says how to ask and tell
 (:meth:`_ask`, :meth:`_tell`) and where the state lives (``_state_attr``):
 :class:`_BaseCMAOptimizer` on ``strategies/cma.py``, ``_BaseNGOptimizer``
 (``optimizers/ng_base.py``) on the strategy registry.
+
+On a population mesh (``parallel/mesh.py``) every rank asks the full
+population, from a search state and a generator replicated at the setup
+(:meth:`_StrategyDriver._replicate_search`), and keeps its rows
+(``ExecutionCore.place``); the tell losses come back gathered, and every
+rank runs the same tell.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ from typing import Optional
 
 import numpy as np
 
+from pix2latent_tpu_torch.parallel.mesh import pad_population
 from pix2latent_tpu_torch.strategies import cma
 from pix2latent_tpu_torch.utils.checkpoint import (FusedCheckpointer,
                                                    LoopCheckpointer,
@@ -63,17 +70,30 @@ class _StrategyDriver:
     def _search_state(self, state):
         setattr(self, self._state_attr, state)
 
+    def _replicate_search(self):
+        """On a mesh, the search state and the generator's state as rank 0
+        holds them, on every rank: one broadcast at the setup."""
+        if self.mesh is None:
+            return
+        rep = self.core.place_replicated(
+            {"state": self._search_state,
+             "generator": self.generator.get_state()})
+        self._search_state = rep["state"]
+        self.generator.set_state(rep["generator"])
+
     def _sample(self, state, var_manager=None):
         """A fresh population of ``var_manager`` (default: the driver's)
         with the grad-free variable from an ask of ``state``:
-        ``(variables, candidates, aux)``."""
+        ``(variables, candidates, aux)``. On a mesh both draws are of the
+        full population, and the variables hold this rank's rows; the
+        candidates stay whole, for the tell."""
         var_manager = var_manager or self.var_manager
         variables = var_manager.initialize(num_samples=self.num_samples,
                                            generator=self.generator)
         x, aux = self._ask(state)
         var_type, name, shape = self._gf_var
         variables[var_type][name] = x.reshape(self.num_samples, *shape).clone()
-        return variables, x, aux
+        return self.core.place(variables), x, aux
 
     def _ask_population(self, var_manager=None):
         """A fresh population asked of the current state; the candidates
@@ -180,7 +200,7 @@ class _StrategyDriver:
         whether a generation ran."""
         state = self._search_state
         ckpt = FusedCheckpointer(checkpoint_path, label,
-                                 every=checkpoint_every)
+                                 every=checkpoint_every, mesh=self.mesh)
         start = ckpt.resume({"state": state,
                              "generator": self.generator.get_state()})
         if ckpt.loaded is not None:
@@ -240,7 +260,8 @@ class _StrategyDriver:
                                     meta_steps, label, checkpoint_path,
                                     checkpoint_every, progress_every)
         variables = self._fused_final(final_steps, final_start,
-                                      final_checkpoint(checkpoint_path, ran),
+                                      final_checkpoint(checkpoint_path, ran,
+                                                       self.mesh),
                                       checkpoint_every)
         return self._final_results(variables, final_start + final_steps)
 
@@ -285,7 +306,7 @@ class _StrategyDriver:
             variables, optimizer, grad_steps, start_step=meta_steps,
             pbar=pbar, total_steps=total_steps, timer=timer,
             checkpoint_path=final_checkpoint(checkpoint_path,
-                                             start < meta_steps),
+                                             start < meta_steps, self.mesh),
             checkpoint_every=checkpoint_every)
         return self._final_results(variables, total_steps)
 
@@ -327,7 +348,7 @@ class _StrategyDriver:
         variables, _, _, _ = self._run_inner(
             variables, optimizer, last_grad_steps, meta_steps * grad_steps,
             checkpoint_path=final_checkpoint(checkpoint_path,
-                                             start < meta_steps),
+                                             start < meta_steps, self.mesh),
             checkpoint_every=checkpoint_every, **progress)
         return self._final_results(variables, total_steps)
 
@@ -343,7 +364,8 @@ class _BaseCMAOptimizer(_StrategyDriver):
     def setup_cma(self, var_manager, popsize: Optional[int] = None,
                   active: bool = False):
         """Initialize CMA for the single ``grad_free`` variable; a
-        ``(mu, sigma)`` tuple there seeds the search distribution."""
+        ``(mu, sigma)`` tuple there seeds the search distribution. On a mesh
+        the population is padded to a multiple of its ranks."""
         gf = var_manager.grad_free_variables()
         if len(gf) != 1:
             raise ValueError("exactly one variable can be optimized via CMA "
@@ -366,8 +388,10 @@ class _BaseCMAOptimizer(_StrategyDriver):
 
         if popsize is None:
             popsize = cma.default_popsize(dim)
+        popsize = pad_population(popsize, self.mesh)
         self.cma_params, self.cma_state = cma.init(
             mu, sigma, popsize, active=active, device=var_manager.device)
+        self._replicate_search()
         self.num_samples = popsize
         self._gf_var = (var_type, name, shape)
         cprint(f"(cma-es) number of samples: {self.num_samples}", "y")

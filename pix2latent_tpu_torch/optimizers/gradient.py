@@ -14,11 +14,14 @@ class GradientOptimizer(_BaseOptimizer):
                  checkpoint_path=None, checkpoint_every=1):
         """Draw ``num_samples`` seeds and run ``grad_steps`` Adam updates;
         long runs go by segments, and ``checkpoint_path`` makes the run
-        resumable at segment granularity.
+        resumable at segment granularity. On a mesh ``num_samples`` must
+        split over its ranks.
         Returns ``(variables, outs, losses)`` (``_final_results``)."""
         self.losses, self.outs = [], []
         variables = self.var_manager.initialize(num_samples=num_samples,
                                                 generator=self.generator)
+        # on a mesh, this rank's rows of the drawn population
+        variables = self.core.place(variables)
         # registered transforms act once, before the first step
         variables = self.core.apply_transforms(variables)
         variables, optimizer = self.core.init_opt_state(variables)

@@ -23,6 +23,7 @@ import inspect
 import numpy as np
 
 from pix2latent_tpu_torch.optimizers.cma_base import _StrategyDriver
+from pix2latent_tpu_torch.parallel.mesh import pad_population
 from pix2latent_tpu_torch.strategies.cma import sanitize_fitness
 from pix2latent_tpu_torch.strategies.host import HostStrategy
 from pix2latent_tpu_torch.strategies.registry import (is_valid_method,
@@ -52,8 +53,11 @@ class _BaseNGOptimizer(_StrategyDriver):
         ``base_ng_optimizer.py:51-89``); a ``(mu, sigma)`` tuple there seeds
         it. ``budget`` is the total number of evaluations (nevergrad's
         definition, generations x population): it goes to factories that
-        route or scale on it (``NGOpt``, ``MetaRecentering``). The port has
-        no mesh, so the population is never padded."""
+        route or scale on it (``NGOpt``, ``MetaRecentering``). On a mesh the
+        population is padded to a multiple of its ranks and ``budget``
+        rescaled by the same factor: callers count it as generations x the
+        requested population, and the routing compares workers against it,
+        so mixed units would change branches on meshed runs only."""
         gf = var_manager.grad_free_variables()
         if len(gf) != 1:
             raise ValueError(
@@ -71,7 +75,10 @@ class _BaseNGOptimizer(_StrategyDriver):
             if s is not None:
                 sigma = float(s)
 
-        num_samples = int(num_samples)
+        requested = int(num_samples)
+        num_samples = pad_population(requested, self.mesh)
+        if budget is not None and num_samples != requested:
+            budget = budget * num_samples / max(requested, 1)
         factory = resolve(self.method)
         kwargs = {}
         if budget is not None and "budget" in inspect.signature(
@@ -79,7 +86,14 @@ class _BaseNGOptimizer(_StrategyDriver):
             kwargs["budget"] = budget
         self.ng_strategy = factory(dim, num_samples, mu, sigma,
                                    device=var_manager.device, **kwargs)
+        if isinstance(self.ng_strategy, HostStrategy) and self.mesh is not \
+                None and self.mesh.size > 1:
+            raise ValueError(f"'{self.method}' keeps its state in a host "
+                             "object, which cannot be replicated over a "
+                             "mesh of more than one rank; use an on-device "
+                             "strategy")
         self.ng_state = self.ng_strategy.init(self.generator)
+        self._replicate_search()
         self.num_samples = num_samples
         self._gf_var = (var_type, name, shape)
         cprint(f"({self.method}) number of samples: {num_samples}", "y")

@@ -10,6 +10,14 @@ around it with annealed noise, renormalized per sample.
 ``optimize_fused_batched`` runs M such searches, each with its own CMA
 state, propagation means, candidate and ``torch.Generator``, their
 populations through the generator together.
+
+On a ``mesh`` (``parallel/mesh.py``) every rank draws the full population
+(the ask, ``initialize``, the propagation noise, each search's from its own
+generator) and keeps its rows; the tell losses come back gathered, and the
+propagated variables are gathered too, once a generation, since the EMA
+takes the best sample's row and the first generation's mean over every row.
+The results are gathered at the end, so every rank returns what a run
+without a mesh returns.
 """
 
 from __future__ import annotations
@@ -141,9 +149,11 @@ class TransformBasinCMAOptimizer(_BaseOptimizer, _BaseCMAOptimizer):
 
     def vis_transform(self, variables):
         """Append the collage of the warped target times the weight to
-        ``self.transform_outs``."""
-        target = to_numpy(variables["output"]["target"])
-        weight = to_numpy(variables["output"]["weight"])
+        ``self.transform_outs`` (every rank's rows on a mesh)."""
+        outputs = self.core.gather_variables(
+            {"output": variables["output"]})["output"]
+        target = to_numpy(outputs["target"])
+        weight = to_numpy(outputs["weight"])
         im = to_image(to_grid(target * weight))
         if self.log_resize_factor is not None:
             h, w = im.shape[:2]
@@ -173,8 +183,9 @@ class TransformBasinCMAOptimizer(_BaseOptimizer, _BaseCMAOptimizer):
         ``self.transform_outs`` when logging, and the inner steps go through
         ``_run_inner`` (logging, tracking, progress; these arguments are
         passed on). Returns ``(carry, (variables, tell losses with
-        non-finite values at inf, last inner step's warped-frame
-        losses))``."""
+        non-finite values at inf, last inner step's warped-frame losses or
+        None without a step))``; on a mesh the variables and the inner
+        losses are this rank's rows, the tell losses every rank's."""
         core = self.core
         gf_type, gf_name, gf_shape = self._gf_var
         n = self.num_samples
@@ -190,13 +201,13 @@ class TransformBasinCMAOptimizer(_BaseOptimizer, _BaseCMAOptimizer):
                     variables["input"][name], vp_means[name], gen_idx,
                     meta_steps, 1.0, True)
 
+        variables = core.place_in_graph(variables)
         variables = core._dedupe_outputs(core.apply_transforms(variables))
         ctx = core.make_ctx(variables)
         variables, optimizer = core.init_opt_state(variables)
         inner = None
         if inner_kwargs is not None:
-            self.transform_tracked.append(
-                to_numpy(variables[gf_type][gf_name]))
+            self.transform_tracked.append(to_numpy(t.reshape(n, *gf_shape)))
             if self.log:
                 self.vis_transform(variables)
             variables, _, _, losses = self._run_inner(
@@ -219,7 +230,7 @@ class TransformBasinCMAOptimizer(_BaseOptimizer, _BaseCMAOptimizer):
         loss, best = _best_index(loss)
         vp_means = dict(vp_means)
         for name in self.variables_to_propagate:
-            data = variables["input"][name].detach()
+            data = core.gather(variables["input"][name].detach())
             base = vp_means[name] if gen_idx > 0 else data.mean(dim=0)
             vp_means[name] = _ema(base, data, best, 0.5)
         lmin = loss.min()
@@ -227,7 +238,7 @@ class TransformBasinCMAOptimizer(_BaseOptimizer, _BaseCMAOptimizer):
                              best_t)
         best_loss = torch.minimum(lmin, best_loss)
         carry = (cma_state, vp_means, best_loss, best_t)
-        return carry, (variables, loss, loss if inner is None else inner)
+        return carry, (variables, loss, inner)
 
     def _fused_generation(self, grad_steps, meta_steps, with_tell):
         """:meth:`_run_generation` of a telling generation as ``(carry,
@@ -279,7 +290,7 @@ class TransformBasinCMAOptimizer(_BaseOptimizer, _BaseCMAOptimizer):
         carry = (self.cma_state, vp0, torch.full((), math.inf, device=dev),
                  torch.zeros(int(np.prod(gf_shape)), device=dev))
         ckpt = FusedCheckpointer(checkpoint_path, "fused transform search",
-                                 every=checkpoint_every)
+                                 every=checkpoint_every, mesh=self.mesh)
         start = ckpt.resume({"carry": carry,
                              "generator": self.generator.get_state()})
         if ckpt.loaded is not None:
@@ -310,7 +321,8 @@ class TransformBasinCMAOptimizer(_BaseOptimizer, _BaseCMAOptimizer):
             carry, meta_steps - 1, last_grad_steps, meta_steps, False,
             (meta_steps - 1) * last_grad_steps,
             checkpoint_path=final_checkpoint(checkpoint_path,
-                                             start < meta_steps - 1),
+                                             start < meta_steps - 1,
+                                             self.mesh),
             checkpoint_every=checkpoint_every)
         self.losses.append(float(loss.min()))
         self.gen_seconds.append(time.perf_counter() - t0)
@@ -319,16 +331,18 @@ class TransformBasinCMAOptimizer(_BaseOptimizer, _BaseCMAOptimizer):
         self._vp_seeded = set(self.variables_to_propagate)
         self._best_loss = float(best_loss)
         self._candidate = to_numpy(best_t).reshape(gf_shape)
-        self.loss = to_numpy(inner)
+        self.loss = to_numpy(loss if inner is None
+                             else self.core.gather(inner))
         self.final_tell = to_numpy(loss)
 
+        # re-render the final population, so the bundle holds its images
+        with torch.no_grad():
+            self.out = self.core.gather(self.model(**{
+                k: v.detach() for k, v in variables.get("input", {}).items()}))
+        variables = self.core.gather_variables(variables)
         best = int(np.argmin(self.final_tell))
         targets = variables["output"]["target"]
         candidate_out = targets[best]
-        # re-render the final population, so the bundle holds its images
-        with torch.no_grad():
-            self.out = self.model(**{k: v.detach() for k, v in
-                                     variables.get("input", {}).items()})
         results = ([to_grid(self.out)], [to_grid(targets)], candidate_out)
         return variables, results, self.loss
 
@@ -345,7 +359,9 @@ class TransformBasinCMAOptimizer(_BaseOptimizer, _BaseCMAOptimizer):
         weight, and one batched CMA tell. ``carry`` is ``(stacked CMA
         states, {name: [M, ...]} means, best losses [M], best t [M, d])``.
         Returns ``(carry, (variables, tell losses [M, pop] with non-finite
-        values at inf, last inner step's warped-frame losses [M, pop]))``."""
+        values at inf, last inner step's warped-frame losses [M*pop] or None
+        without a step))``; on a mesh the variables and the inner losses are
+        this rank's rows."""
         core = self.core
         gf_type, gf_name, gf_shape = self._gf_var
         n, m = self.num_samples, len(gens)
@@ -370,6 +386,7 @@ class TransformBasinCMAOptimizer(_BaseOptimizer, _BaseCMAOptimizer):
                           for name in d} for vt, d in parts[0].items()}
         t = torch.stack(asks)                                # [M, pop, d]
 
+        variables = core.place_in_graph(variables)
         variables = core._dedupe_outputs(core.apply_transforms(variables))
         ctx = core.make_ctx(variables)
         variables, optimizer = core.init_opt_state(variables)
@@ -379,7 +396,7 @@ class TransformBasinCMAOptimizer(_BaseOptimizer, _BaseCMAOptimizer):
             variables, _, _, ys = core.grad_steps(
                 variables, optimizer, list(gens), grad_steps,
                 start_step=start_step, ctx=ctx, track=False)
-            inner = ys["loss"][-1].reshape(m, n)
+            inner = ys["loss"][-1]
         info = self.var_manager.variable_info
         originals = {"target": defaults["target"]}
         if "weight" in info and "weight" in defaults:
@@ -395,7 +412,7 @@ class TransformBasinCMAOptimizer(_BaseOptimizer, _BaseCMAOptimizer):
         rows = torch.arange(m, device=loss.device) * n + best
         vp_means = dict(vp_means)
         for name in self.variables_to_propagate:
-            data = variables["input"][name].detach()
+            data = core.gather(variables["input"][name].detach())
             base = (vp_means[name] if gen_idx > 0 else
                     data.reshape(m, n, *data.shape[1:]).mean(dim=1))
             vp_means[name] = ((1.0 - 0.5) * base
@@ -404,8 +421,7 @@ class TransformBasinCMAOptimizer(_BaseOptimizer, _BaseCMAOptimizer):
         t_best = t.reshape(m * n, -1).index_select(0, rows)
         best_t = torch.where((lmin < best_loss)[:, None], t_best, best_t)
         best_loss = torch.minimum(lmin, best_loss)
-        return ((states, vp_means, best_loss, best_t),
-                (variables, loss, loss if inner is None else inner))
+        return ((states, vp_means, best_loss, best_t), (variables, loss, inner))
 
     def optimize_fused_batched(self, batch_defaults, meta_steps, grad_steps,
                                last_grad_steps=None, popsize=None,
@@ -480,7 +496,7 @@ class TransformBasinCMAOptimizer(_BaseOptimizer, _BaseCMAOptimizer):
                  torch.zeros((m, int(np.prod(gf_shape))), device=dev))
 
         ckpt = FusedCheckpointer(checkpoint_path, "batched transform search",
-                                 every=checkpoint_every)
+                                 every=checkpoint_every, mesh=self.mesh)
         start = ckpt.resume({"carry": carry,
                              "generators": [g.get_state() for g in gens]})
         if ckpt.loaded is not None:
@@ -534,6 +550,9 @@ class TransformBasinCMAOptimizer(_BaseOptimizer, _BaseCMAOptimizer):
         self.gen_seconds.append(time.perf_counter() - t0)
 
         states, vp_means, best_loss, best_t = carry
+        inner = (loss if inner is None
+                 else self.core.gather(inner).reshape(m, self.num_samples))
+        variables = self.core.gather_variables(variables)
         best = loss_np.argmin(axis=1)
         targets = to_numpy(variables["output"]["target"]).reshape(
             m, self.num_samples, *info["target"]["shape"])
@@ -618,8 +637,11 @@ class TransformBasinCMAOptimizer(_BaseOptimizer, _BaseCMAOptimizer):
 
         best = int(loss.argmin())
         self.final_tell = to_numpy(loss)
-        candidate_out = variables["output"]["target"][best]
         self._finalize_tracked()
+        if self.mesh is not None:
+            variables = self.core.gather_variables(variables)
+            self.out, self.loss = self._gathered(self.out, self.loss)
+        candidate_out = variables["output"]["target"][best]
 
         if self.log:
             return variables, (self.outs, self.transform_outs,

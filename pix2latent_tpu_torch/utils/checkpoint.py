@@ -14,6 +14,12 @@ tensor on the CPU), the meta-iteration counter, and for a segmented gradient
 run the variables and the per-variable optimizers' state
 (``VariableOptimizer.state``); for the transform search also the
 propagation means, the best loss and the best candidate.
+
+On a population mesh (``parallel/mesh.py``) the file holds what a run
+without a mesh holds: the search state and the generator's state are the
+same on every rank, a gradient run's carry is gathered from every rank, and
+rank 0 alone writes (``mesh=`` here, the optimizer's ``mesh`` for
+:class:`LoopCheckpointer`). Every rank loads the file and keeps its rows.
 """
 
 from __future__ import annotations
@@ -95,17 +101,24 @@ def checkpoint_exists(path):
     return bool(path) and os.path.exists(path)
 
 
-def final_checkpoint(path, meta_loop_ran: bool):
+def _writes(mesh) -> bool:
+    return mesh is None or mesh.is_writer
+
+
+def final_checkpoint(path, meta_loop_ran: bool, mesh=None):
     """The path of a driver's final-run checkpoint, ``path + ".final"``
     (None without ``path``). When the meta loop ran a generation in this
     call, a final-run checkpoint on disk belongs to an earlier, shorter run
-    and is removed: only a run whose meta loop was already finished resumes
-    its final run."""
+    and is removed (by rank 0 of a ``mesh``, which every rank then waits
+    for): only a run whose meta loop was already finished resumes its final
+    run."""
     if not path:
         return None
     final = path + ".final"
-    if meta_loop_ran and os.path.exists(final):
+    if meta_loop_ran and _writes(mesh) and os.path.exists(final):
         os.remove(final)
+    if mesh is not None:
+        mesh.barrier()
     return final
 
 
@@ -122,11 +135,12 @@ class FusedCheckpointer:
       re-running a finished run skips the whole loop.
     """
 
-    def __init__(self, path, label: str, every: int = 1):
+    def __init__(self, path, label: str, every: int = 1, mesh=None):
         self.path = path
         self.label = label
         self.every = max(int(every), 1)
         self.loaded = None
+        self.writes = _writes(mesh)
 
     def resume(self, template: dict) -> int:
         """Load ``{**template, meta_iter}`` if a checkpoint exists; the
@@ -143,11 +157,11 @@ class FusedCheckpointer:
 
     def save(self, meta_iter: int, carry: dict):
         """Write ``carry`` as the state entering generation ``meta_iter``."""
-        if self.path and meta_iter % self.every == 0:
+        if self.path and self.writes and meta_iter % self.every == 0:
             save_checkpoint(self.path, {**carry, "meta_iter": np.int32(meta_iter)})
 
     def finalize(self, meta_steps: int, carry: dict):
-        if self.path:
+        if self.path and self.writes:
             save_checkpoint(self.path, {**carry, "meta_iter": np.int32(meta_steps)})
 
 
@@ -196,5 +210,6 @@ class LoopCheckpointer:
         return start
 
     def save(self, meta_iter: int):
-        if self.path and meta_iter % self.every == 0:
+        if (self.path and meta_iter % self.every == 0
+                and _writes(getattr(self.opt, "mesh", None))):
             save_checkpoint(self.path, self._carry(meta_iter))

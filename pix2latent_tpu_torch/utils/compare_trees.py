@@ -12,7 +12,7 @@ reverse (old, new, new, old), each turn a fresh process that imports the
 checkout's own ``chip_smoke.py`` and package, times K1's float32 case at the
 BigGAN-deep-256 shape (the phase reads K1's share of a step from it) and
 runs the phase at ``chip_smoke.py``'s schedule (3 generations of 30 steps,
-30 final steps).
+30 final steps), its results written to a temporary directory.
 Prints the card's ``nvidia-smi`` line, the phase's JSON line of every turn
 with ``"tree"`` added, and a last line with each checkout's images/s by turn
 and their mean. Runs only on the card; it imports nothing of JAX.
@@ -30,7 +30,7 @@ from pathlib import Path
 GENERATIONS, FINAL_STEPS = 3, 30      # chip_smoke.py's biggan_f32_path
 
 _CHILD = """
-import importlib, sys
+import importlib, sys, tempfile
 root, build_only = sys.argv[1], sys.argv[2] == "build"
 sys.path.insert(0, root)
 import torch
@@ -39,7 +39,9 @@ assert str(cs.ROOT) == root, (cs.ROOT, root)
 cs.phase_build()
 if not build_only:
     case = cs._attention_case(cs.FLAGSHIP, torch.float32, timed=True)
-    cs.phase_biggan_f32_path({generations}, {final_steps}, [case])
+    with tempfile.TemporaryDirectory() as save_dir:
+        cs.phase_biggan_f32_path({generations}, {final_steps}, [case],
+                                 save_dir)
 """.format(generations=GENERATIONS, final_steps=FINAL_STEPS)
 
 

@@ -26,3 +26,16 @@ def resolve_device(device="cuda") -> torch.device:
     elif device.type != "cpu":
         raise ValueError(f"unsupported device {device}")
     return device
+
+
+def same_device(a, b) -> bool:
+    """Whether ``a`` and ``b`` name one device; a CUDA device without an
+    index is the current one."""
+    a, b = torch.device(a), torch.device(b)
+    if a.type != b.type:
+        return False
+    if a.type != "cuda" or (a.index is not None and a.index == b.index):
+        return True
+    current = torch.cuda.current_device()
+    return ((current if a.index is None else a.index)
+            == (current if b.index is None else b.index))

@@ -25,12 +25,13 @@ def phase_build():
 def _attention_case(shape, dtype, timed):
     return {"kernel": "sagan_attention", "shape": list(shape)}
 
-def phase_biggan_f32_path(generations, final_steps, cases):
+def phase_biggan_f32_path(generations, final_steps, cases, save_dir):
     if RATE < 0:
         sys.exit("the phase failed")
     print(json.dumps({"phase": "biggan_f32_path", "images_per_sec": RATE,
                       "schedule": [generations, final_steps],
-                      "k1_shape": cases[0]["shape"]}))
+                      "k1_shape": cases[0]["shape"],
+                      "save_dir_exists": Path(save_dir).is_dir()}))
 '''
 
 
@@ -57,7 +58,8 @@ def test_checkouts_take_turns_and_are_averaged(tmp_path, capsys, no_smi):
     runs = [json.loads(line) for line in lines[1:-1]]
     assert [r["tree"] for r in runs] == ["old", "new", "new", "old"]
     assert all(r["schedule"] == [CT.GENERATIONS, CT.FINAL_STEPS]
-               and r["k1_shape"] == [18, 4096, 1024, 64, 256] for r in runs)
+               and r["k1_shape"] == [18, 4096, 1024, 64, 256]
+               and r["save_dir_exists"] for r in runs)
     summary = json.loads(lines[-1])["images_per_sec"]
     assert summary == {"old": {"turns": [70.0, 70.0], "mean": 70.0},
                        "new": {"turns": [80.0, 80.0], "mean": 80.0}}

@@ -12,6 +12,11 @@ the JAX package's ``register_biggan_vars``, and a run on the CPU at a tiny
 size (the BigGAN-deep-256 wrapper with the 128 px layout and 4 channels a
 layer), through both drivers, resumed from its checkpoint.
 
+The sharded BigGAN entry point
+(``pix2latent_tpu_torch/examples/invert_biggan_basincma_sharded.py``): the
+JAX example's flags plus ``--device`` and its schedules, and a run as one
+rank on the CPU at the same tiny size.
+
 The BigGAN entry point with the transform search
 (``pix2latent_tpu_torch/examples/invert_biggan_with_transform.py``): the JAX
 example's flags plus ``--device`` and its schedules, both phases on the CPU
@@ -33,6 +38,8 @@ import torch
 from pix2latent_tpu_torch import VariableManager
 from pix2latent_tpu_torch.examples import common
 from pix2latent_tpu_torch.examples import invert_biggan_basincma as bg
+from pix2latent_tpu_torch.examples import \
+    invert_biggan_basincma_sharded as sharded
 from pix2latent_tpu_torch.examples import \
     invert_biggan_with_transform as tf_ex
 from pix2latent_tpu_torch.examples import \
@@ -259,6 +266,43 @@ def test_biggan_host_loop_run_writes_results(tiny_biggan, tmp_path):
     assert result["tell_min"].shape == (2,)
     assert np.isfinite(result["loss"]).all()
     assert result["tracked/z"].shape == (2 * 5 + 10, 18, 128)
+
+
+# --------------------------------------------------------------------- #
+# BigGAN with the population split across cards                           #
+# --------------------------------------------------------------------- #
+
+def test_sharded_flags_and_schedules_are_the_jax_examples():
+    src = (ROOT / "examples" / "invert_biggan_basincma_sharded.py").read_text()
+    own = set(re.findall(r'add_argument\(\s*"--(\w+)"', src))
+    assert own == {"n_devices"}
+    want = _flags(_jax_common().base_parser("")) | own
+    assert _flags(sharded.parser()) == want | {"device"}
+    assert "meta, grad, last = 2, 4, 8" in src
+    assert "meta, grad, last = 30, 30, 300" in src
+    assert sharded.schedule(argparse.Namespace(smoke=True)) == (2, 4, 8)
+    assert sharded.schedule(argparse.Namespace(smoke=False)) == (30, 30, 300)
+
+
+def test_sharded_run_writes_results(tiny_biggan, tmp_path, monkeypatch,
+                                    capsys):
+    """Without a process group the example runs as one rank."""
+    for k in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR",
+              "MASTER_PORT", "TORCHELASTIC_RUN_ID"):
+        monkeypatch.delenv(k, raising=False)
+    sharded.main(["--device", "cpu", "--smoke", "--n_devices", "1",
+                  "--save_dir", str(tmp_path)])
+    assert "population mesh: 1 rank(s)" in capsys.readouterr().out
+    result = np.load(tmp_path / "result.npz")
+    assert result["variables/input/z"].shape == (18, 128)
+    assert result["variables/input/c"].shape == (18, 128)
+    assert result["loss"].shape == (18,) and result["loss_step"] == 2 * 4 + 8
+    assert result["tell_min"].shape == (2,)
+    assert np.isfinite(result["loss"]).all()
+    assert result["tracked/z"].shape == (2 * 4 + 8, 18, 128)
+    with pytest.raises(ValueError):
+        sharded.main(["--device", "cpu", "--smoke", "--n_devices", "2",
+                      "--save_dir", str(tmp_path)])
 
 
 # --------------------------------------------------------------------- #
