@@ -41,6 +41,7 @@ run resumes on any number of ranks.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, Optional
 
 import numpy as np
@@ -55,6 +56,7 @@ from pix2latent_tpu_torch.utils.checkpoint import (checkpoint_exists,
                                                    save_checkpoint)
 from pix2latent_tpu_torch.utils.image import binarize
 from pix2latent_tpu_torch.utils.misc import cprint, to_numpy
+from pix2latent_tpu_torch.utils.profiling import span
 from pix2latent_tpu_torch.variables import (VariableManager,
                                             VariableOptimizer, Variables)
 
@@ -114,6 +116,14 @@ def row_chunks(total: int, max_batch_size, *trees):
 
 def _cat(parts):
     return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
+def _chunk_span(n_chunks: int, real: int, chunk: int):
+    """A ``chunk`` span of ``real`` rows padded to ``chunk``, where the
+    population runs in more than one chunk."""
+    if n_chunks == 1:
+        return contextlib.nullcontext()
+    return span("chunk", rows=real, pad=chunk - real)
 
 
 def _groups(generator) -> int:
@@ -207,12 +217,14 @@ class ExecutionCore:
     def _forward_loss(self, variables: Variables, ctx=None):
         """(mean over the population, per-sample losses [pop], images)."""
         variables = self._freeze(variables)
-        out = self.model(**variables.get("input", {}))
-        if ctx is not None:
-            loss_map = self.loss_fn.from_ctx(out, ctx)
-        else:
-            loss_map = self.loss_fn(out, **variables.get("output", {}))
-        per_sample = loss_map.reshape(out.shape[0], -1).mean(dim=1)
+        with span("forward"):
+            out = self.model(**variables.get("input", {}))
+        with span("loss"):
+            if ctx is not None:
+                loss_map = self.loss_fn.from_ctx(out, ctx)
+            else:
+                loss_map = self.loss_fn(out, **variables.get("output", {}))
+            per_sample = loss_map.reshape(out.shape[0], -1).mean(dim=1)
         return per_sample.mean(), per_sample, out
 
     def _can_precompute(self) -> bool:
@@ -247,8 +259,10 @@ class ExecutionCore:
         total = pop * (self.mesh.size if self.mesh is not None else 1)
         losses, outs = [], []
         for real, v, c in chunks:
-            loss, per_sample, out = self._forward_loss(v, c)
-            (loss * (chunk * groups / total)).backward()
+            with _chunk_span(len(chunks), real, chunk):
+                loss, per_sample, out = self._forward_loss(v, c)
+                with span("backward"):
+                    (loss * (chunk * groups / total)).backward()
             losses.append(per_sample[:real].detach())
             outs.append(out[:real].detach())
         return _cat(losses), _cat(outs)
@@ -257,8 +271,10 @@ class ExecutionCore:
         """``(per-sample losses [pop], images)`` without gradients, chunk
         by chunk."""
         losses, outs = [], []
-        for real, v, c in self._chunks(variables, ctx)[0]:
-            _, per_sample, out = self._forward_loss(v, c)
+        chunks, chunk, _ = self._chunks(variables, ctx)
+        for real, v, c in chunks:
+            with _chunk_span(len(chunks), real, chunk):
+                _, per_sample, out = self._forward_loss(v, c)
             losses.append(per_sample[:real])
             outs.append(out[:real])
         return _cat(losses), _cat(outs)
@@ -268,7 +284,7 @@ class ExecutionCore:
         computed once without gradients; None when not applicable."""
         if not self._can_precompute() or not variables.get("output"):
             return None
-        with torch.no_grad():
+        with torch.no_grad(), span("ctx"):
             return self.loss_fn.precompute(
                 **{k: v.detach() for k, v in variables["output"].items()})
 
@@ -367,28 +383,33 @@ class ExecutionCore:
         after each step, ``{name: [n_steps, pop, ...]}``."""
         track = self.track_variables if track is None else bool(track)
         n_steps = int(n_steps)
-        variables = self._dedupe_outputs(variables)
-        if ctx is None:
-            ctx = self.make_ctx(variables)
-        seg = self.segment_steps
-        if not checkpoint_path and (not seg or n_steps <= seg):
-            return self._run_steps(variables, optimizer, generator, n_steps,
-                                   start_step, ctx, track)
-        return self._grad_steps_segmented(
-            variables, optimizer, generator, n_steps, int(start_step), ctx,
-            track, int(seg) if seg else n_steps, checkpoint_path,
-            max(int(checkpoint_every), 1))
+        with span("inner", steps=n_steps, rows=max_rows(variables)):
+            variables = self._dedupe_outputs(variables)
+            if ctx is None:
+                ctx = self.make_ctx(variables)
+            seg = self.segment_steps
+            if not checkpoint_path and (not seg or n_steps <= seg):
+                return self._run_steps(variables, optimizer, generator,
+                                       n_steps, start_step, ctx, track)
+            return self._grad_steps_segmented(
+                variables, optimizer, generator, n_steps, int(start_step),
+                ctx, track, int(seg) if seg else n_steps, checkpoint_path,
+                max(int(checkpoint_every), 1))
 
     def _run_steps(self, variables, optimizer, generator, n_steps, start_step,
                    ctx, track):
         losses, tracked, out = [], [], None
         for i in range(n_steps):
-            variables = self._hook_in_place(generator, variables,
-                                            start_step + i)
-            optimizer.zero_grad()
-            per_sample, out = self._forward_backward(variables, ctx,
-                                                     _groups(generator))
-            optimizer.step()
+            with span("step"):
+                with span("hook"):
+                    variables = self._hook_in_place(generator, variables,
+                                                    start_step + i)
+                with span("adam"):
+                    optimizer.zero_grad()
+                per_sample, out = self._forward_backward(variables, ctx,
+                                                         _groups(generator))
+                with span("adam"):
+                    optimizer.step()
             losses.append(per_sample)
             if track:
                 tracked.append({name: t.detach().clone() for name, t in
@@ -492,9 +513,10 @@ class ExecutionCore:
 
     def eval(self, variables: Variables, generator, step=0):
         """Hooks + forward + per-sample loss, no updates: ``(out, loss)``."""
-        with torch.no_grad():
+        with torch.no_grad(), span("eval"):
             variables = self._dedupe_outputs(variables)
-            variables = self._apply_hooks(generator, variables, step)
+            with span("hook"):
+                variables = self._apply_hooks(generator, variables, step)
             per_sample, out = self._eval_chunked(variables)
         return out, per_sample
 
@@ -507,17 +529,20 @@ class ExecutionCore:
         the loss is taken in the un-warped frame (:meth:`_unwarped_loss`,
         where ``originals`` are the populations' own un-warped targets),
         where ``ctx``, the context of the warped targets, does not apply."""
-        with torch.no_grad():
+        with torch.no_grad(), span("tell_loss"):
             variables = self._dedupe_outputs(variables)
-            variables = self._apply_hooks(generator, variables, step)
+            with span("hook"):
+                variables = self._apply_hooks(generator, variables, step)
             if not (inverted and self.transform_fns
                     and "transform" in variables):
                 per_sample, _ = self._eval_chunked(variables, ctx)
                 return self.gather(per_sample)
-            outs = [self.model(**self._freeze(v).get("input", {}))[:real]
-                    for real, v, _ in self._chunks(variables, None)[0]]
-            return self.gather(
-                self._unwarped_loss(variables, _cat(outs), originals))
+            with span("forward"):
+                outs = [self.model(**self._freeze(v).get("input", {}))[:real]
+                        for real, v, _ in self._chunks(variables, None)[0]]
+            with span("loss"):
+                loss = self._unwarped_loss(variables, _cat(outs), originals)
+            return self.gather(loss)
 
     def _unwarped_loss(self, variables: Variables, out, originals=None):
         """Per-sample loss of the images ``out`` taken back to the original

@@ -31,6 +31,13 @@ from pix2latent_tpu_torch.utils.checkpoint import (FusedCheckpointer,
                                                    final_checkpoint)
 from pix2latent_tpu_torch.utils.misc import (Timer, cprint, progress_print,
                                              to_numpy)
+from pix2latent_tpu_torch.utils.profiling import span
+
+
+def _read_min(loss) -> float:
+    """The least of the device tensor ``loss``, read on the host (a sync)."""
+    with span("sync", site="tell_min"):
+        return float(loss.min())
 
 
 class _StrategyDriver:
@@ -88,12 +95,14 @@ class _StrategyDriver:
         full population, and the variables hold this rank's rows; the
         candidates stay whole, for the tell."""
         var_manager = var_manager or self.var_manager
-        variables = var_manager.initialize(num_samples=self.num_samples,
-                                           generator=self.generator)
-        x, aux = self._ask(state)
-        var_type, name, shape = self._gf_var
-        variables[var_type][name] = x.reshape(self.num_samples, *shape).clone()
-        return self.core.place(variables), x, aux
+        with span("ask"):
+            variables = var_manager.initialize(num_samples=self.num_samples,
+                                               generator=self.generator)
+            x, aux = self._ask(state)
+            var_type, name, shape = self._gf_var
+            variables[var_type][name] = x.reshape(self.num_samples,
+                                                  *shape).clone()
+            return self.core.place(variables), x, aux
 
     def _ask_population(self, var_manager=None):
         """A fresh population asked of the current state; the candidates
@@ -108,8 +117,10 @@ class _StrategyDriver:
         if loss is None:
             loss = self.core.tell_loss(variables, self.generator, step,
                                        inverted=inverted)
-        self._search_state = self._tell(self._search_state, self._sampled,
-                                        loss, self._ask_aux)
+        with span("strategy_tell"):
+            self._search_state = self._tell(self._search_state,
+                                            self._sampled, loss,
+                                            self._ask_aux)
         return loss
 
     def _refine_tell(self, variables, x, state, grad_steps: int,
@@ -141,7 +152,9 @@ class _StrategyDriver:
                     **inner_kwargs)
         loss = core.tell_loss(variables, self.generator,
                               step=gen_idx * grad_steps + grad_steps, ctx=ctx)
-        return self._tell(state, x, loss, aux), loss, inner
+        with span("strategy_tell"):
+            state = self._tell(state, x, loss, aux)
+        return state, loss, inner
 
     def refine_and_tell(self, variables, grad_steps: int, gen_idx: int,
                         inner_kwargs=None):
@@ -210,19 +223,20 @@ class _StrategyDriver:
         prev_min = None
         for gi in range(start, meta_steps):
             t0 = time.perf_counter()
-            carry_in = {"state": state,
-                        "generator": self.generator.get_state()}
-            state, gen_min = gen_fn(state, gi)
-            if prev_min is not None:
-                self.losses.append(float(prev_min))
-                if progress_every and gi % progress_every == 0:
-                    cprint(f"({label}) gen {gi}/{meta_steps} min tell loss "
-                           f"{self.losses[-1]:.4f}", "c")
-            prev_min = gen_min
-            ckpt.save(gi, carry_in)
+            with span("generation", gen=gi):
+                carry_in = {"state": state,
+                            "generator": self.generator.get_state()}
+                state, gen_min = gen_fn(state, gi)
+                if prev_min is not None:
+                    self.losses.append(_read_min(prev_min))
+                    if progress_every and gi % progress_every == 0:
+                        cprint(f"({label}) gen {gi}/{meta_steps} min tell "
+                               f"loss {self.losses[-1]:.4f}", "c")
+                prev_min = gen_min
+                ckpt.save(gi, carry_in)
             self.gen_seconds.append(time.perf_counter() - t0)
         if prev_min is not None:
-            self.losses.append(float(prev_min))
+            self.losses.append(_read_min(prev_min))
         self._search_state = state
         ckpt.finalize(meta_steps, {"state": state,
                                    "generator": self.generator.get_state()})
@@ -282,15 +296,16 @@ class _StrategyDriver:
                                 every=checkpoint_every)
         start = ckpt.resume()
         for i in range(start, meta_steps):
-            variables = self._ask_population()
-            self.out, loss = self.core.eval(variables, self.generator, i)
-            self.loss = to_numpy(loss)
-            if self.log and (i + 1) % self.log_iter == 0:
-                self.log_result(variables, i + 1)
-            tell = self._update(variables, step=i)
-            if not self.log:
-                self.losses.append(float(tell.min()))
-            ckpt.save(i + 1)
+            with span("generation", gen=i):
+                variables = self._ask_population()
+                self.out, loss = self.core.eval(variables, self.generator, i)
+                self.loss = to_numpy(loss)
+                if self.log and (i + 1) % self.log_iter == 0:
+                    self.log_result(variables, i + 1)
+                tell = self._update(variables, step=i)
+                if not self.log:
+                    self.losses.append(_read_min(tell))
+                ckpt.save(i + 1)
             if pbar is not None:
                 pbar.progress((i + 1) / total_steps)
             elif (i + 1) % self.show_iter == 0:
@@ -330,15 +345,16 @@ class _StrategyDriver:
 
         for gi in range(start, meta_steps):
             t0 = time.perf_counter()
-            loss, _ = self.refine_and_tell(self._ask_population(),
-                                           grad_steps, gi, progress)
-            if not self.log:
-                self.losses.append(float(loss.min()))
+            with span("generation", gen=gi):
+                loss, _ = self.refine_and_tell(self._ask_population(),
+                                               grad_steps, gi, progress)
+                if not self.log:
+                    self.losses.append(_read_min(loss))
             self.gen_seconds.append(time.perf_counter() - t0)
             ckpt.save(gi + 1)
             if progress_every and (gi + 1) % progress_every == 0:
                 cprint(f"({label}) gen {gi + 1}/{meta_steps} min tell loss "
-                       f"{float(loss.min()):.4f} ({self.gen_seconds[-1]:.3f} "
+                       f"{_read_min(loss):.4f} ({self.gen_seconds[-1]:.3f} "
                        "s/gen)", "c")
 
         # final population: Adam only, no tell

@@ -37,10 +37,11 @@ import torch
 import torch.distributed as dist
 
 from pix2latent_tpu_torch.utils.device import resolve_device
+from pix2latent_tpu_torch.utils.profiling import span
 
 POP_AXIS = "pop"
 
-_COUNTS = {"gathers": 0, "gather_bytes": 0, "broadcasts": 0}
+_COUNTS = {"gathers": 0, "gather_bytes": 0}
 
 
 def reset_gather_counts():
@@ -49,9 +50,8 @@ def reset_gather_counts():
 
 
 def gather_counts() -> dict:
-    """``{"gathers", "gather_bytes", "broadcasts"}`` since the last reset:
-    the calls of :meth:`Mesh.gather`, the bytes they gathered (the full
-    result's), and the set-up broadcasts of :func:`replicate`."""
+    """``{"gathers", "gather_bytes"}`` since the last reset: the calls of
+    :meth:`Mesh.gather` and the bytes they gathered (the full result's)."""
     return dict(_COUNTS)
 
 
@@ -137,23 +137,23 @@ class Mesh:
             raise ValueError("gather takes a tensor with a leading axis")
         _COUNTS["gathers"] += 1
         _COUNTS["gather_bytes"] += t.numel() * t.element_size() * self.size
-        if not self.distributed:
-            if self.size != 1:
-                raise RuntimeError(f"a {self.size}-rank mesh needs a "
-                                   "torch.distributed process group")
-            return t.clone()
-        if self.backend == "nccl":
-            out = t.new_empty((self.size * t.shape[0], *t.shape[1:]))
-            dist.all_gather_into_tensor(out, t)
-            return out
-        parts = [torch.empty_like(t) for _ in range(self.size)]
-        dist.all_gather(parts, t)
-        return torch.cat(parts)
+        if not self.distributed and self.size != 1:
+            raise RuntimeError(f"a {self.size}-rank mesh needs a "
+                               "torch.distributed process group")
+        with span("gather"):
+            if not self.distributed:
+                return t.clone()
+            if self.backend == "nccl":
+                out = t.new_empty((self.size * t.shape[0], *t.shape[1:]))
+                dist.all_gather_into_tensor(out, t)
+                return out
+            parts = [torch.empty_like(t) for _ in range(self.size)]
+            dist.all_gather(parts, t)
+            return torch.cat(parts)
 
     def broadcast(self, tree):
         """``tree`` with every tensor replaced by rank 0's (through the
         mesh's device, back to the tensor's own)."""
-        _COUNTS["broadcasts"] += 1
         if not self.distributed:
             return tree
 

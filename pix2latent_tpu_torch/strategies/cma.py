@@ -23,6 +23,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from pix2latent_tpu_torch.utils.profiling import span
+
 
 def default_popsize(n: int) -> int:
     """PyCMA's default population size: ``4 + floor(3 ln n)``."""
@@ -228,7 +230,9 @@ def tell(params: CMAParams, state: CMAState, x: torch.Tensor,
     sigma = torch.clamp(sigma, 1e-12, 1e12)
 
     if refresh_eigen:
-        eigvals, B = torch.linalg.eigh(C)
+        # eigh checks the solver's status on the host: a sync
+        with span("sync", site="eigh"):
+            eigvals, B = torch.linalg.eigh(C)
         D = torch.sqrt(torch.clamp(eigvals, min=1e-20))
     else:
         B, D = state.B, state.D

@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from pix2latent_tpu_torch.utils.device import resolve_device
+from pix2latent_tpu_torch.utils.profiling import span
 
 _COLORS = {
     "r": "\033[91m", "g": "\033[92m", "y": "\033[93m",
@@ -93,8 +94,11 @@ class HiddenPrints:
 
 def to_numpy(x):
     """A tensor (any device) or array-like as a host numpy array. Reading a
-    device tensor waits for the device."""
+    device tensor waits for the device (a ``sync`` span)."""
     if isinstance(x, torch.Tensor):
+        if x.is_cuda:
+            with span("sync", site="to_numpy"):
+                return x.detach().cpu().numpy()
         return x.detach().cpu().numpy()
     return np.asarray(x)
 

@@ -400,12 +400,16 @@ def test_benchmark_is_reported_by_log_result():
 # --------------------------------------------------------------------- #
 
 def test_trace_writes_a_chrome_trace_with_annotations(tmp_path):
+    profiling.clear_spans()
     with profiling.trace(str(tmp_path / "t")):
-        with profiling.annotate("p2l-generation"):
+        with profiling.span("generation", gen=0):
             torch.ones(64, 64) @ torch.ones(64, 64)
     trace = json.loads((tmp_path / "t" / "trace.json").read_text())
     names = {e.get("name") for e in trace["traceEvents"]}
-    assert "p2l-generation" in names
+    assert "p2l::generation" in names
+    assert [(r["name"], r["attrs"]) for r in profiling.spans()] == [
+        ("generation", {"gen": 0})]
+    profiling.clear_spans()
 
 
 def test_debug_nans_toggles_anomaly_mode():
