@@ -54,7 +54,18 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      version at each of the 26 modulated-conv inputs of one FFHQ chunk
      (``models/stylegan2.py:modulated_conv_inputs``) and times each launch
      cold, beside its bound,
-     with sums over the chunk.
+     with sums over the chunk;
+   - the block convolution kernel (``ops/block_conv.py``) at four GenBlock
+     convolutions of BigGAN-deep-256 at population 18, one for each of its
+     pieces: the two heaviest 3x3s (block 7 at 64x64 with 256 channels,
+     block 11 at 256x256 with 64; the 4-byte gather, K whole), block 0's
+     3x3 at 4x4 with 512 (K split 16 ways, ``splitk_reduce_kernel``) and
+     block 11's 1x1 from 64 to 128 channels (the 16-byte route), forward
+     and input gradient against float64 ``F.conv2d`` with K1's float32
+     tolerances on outputs of unit scale, two calls bitwise equal; timed
+     beside cuDNN's heuristic choice (``plain_*_ms``) and cuDNN under
+     ``cudnn.benchmark`` (``library_*_ms``), timings only, and the least
+     time of its work (``p2l_bench/flops/roofline.least_ms``).
    Times (CUDA events, median of 25 runs; a device-side wait before each
    timed launch keeps the host's time to launch it outside the events) of
    the kernel, the plain version
@@ -82,7 +93,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    ``shortened``, as any schedule from the flags; ``sg2_path``: 10 + 100), so
    that the script stays within about half its time limit. The launch
    counters are set to 0 just before and read just after; they must equal
-   one forward per inner step and per tell, one backward per inner step.
+   one forward per inner step and per tell, one backward per inner step;
+   in bfloat16 every GenBlock convolution goes to ``F.conv2d`` (48 calls a
+   forward, none through the block convolution kernel).
 5. ``whole_step``: one float32 forward and backward of generator + loss at
    population 2 and full width, on the card against the CPU.
 6. ``sg2_path``: BasinCMA inversion of the 512x512 ramp through StyleGAN2
@@ -122,7 +135,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    30 generations and 30 of its 300 final steps (printed as
    ``shortened``). K1's counters are set to 0 just before and read just
    after: one forward per inner step and per tell, one backward per inner
-   step. Prints images/s, seconds per generation, peak memory, the tell
+   step; so are the block convolution kernel's: 48 forward calls (4 a
+   GenBlock) per forward, 48 input-gradient calls per backward, none on
+   ``F.conv2d``. Prints images/s, seconds per generation, peak memory, the tell
    losses and K1's share of a step (from the ``kernels`` times). Then the
    entry point's ``finish`` writes the results (``vars.npy``,
    ``result.npz``) to a directory of the run, beside the weights
@@ -280,8 +295,12 @@ bfloat16 ``_batched`` at [36, 4096, 1024, 64, 256] with ``batched_path``'s,
 ``edit_path``'s; ``_f32_sharded`` at [18, ...] with ``sharded_path``'s;
 K2 and K3 a third time, ``_f32``, float32 at the cars
 shapes with ``cars_ng_path``'s, which ``load_stylegan2`` built: each K2 and
-K3 entry names its loader in ``launched_by``), the card's ``nvidia-smi``
-line and the result line.
+K3 entry names its loader in ``launched_by``; the block convolution
+kernel's pieces, ``block_conv`` (the 3x3s with K whole),
+``block_conv_splitk_reduce`` and ``block_conv_1x1``, each ``_fwd`` and
+``_bwd`` at its timed GenBlock shapes, with ``biggan_f32_path``'s calls and
+how many of a pass's 48 at population 18 run that piece), the card's
+``nvidia-smi`` line and the result line.
 It exits non-zero, printing no result, without a CUDA device or without the
 package beside it.
 """
@@ -338,6 +357,15 @@ MOD_FFHQ = (FFHQ_CHUNK, 32, 1024, 1024)
 # (rtol, atol) of g_x and of g_s, tests/test_mod_backward.py
 MOD_TOL = {"float32": ((1e-6, 0.0), (5e-5, 1e-5)),
            "bfloat16": ((2e-2, 1e-2), (2e-2, 1e-2))}
+# BigGAN-deep-256's block convolutions at population 18, by the piece of the
+# kernel each one runs: the two heaviest GenBlock 3x3s (block 7 at 64x64
+# with 256 channels, block 11 at 256x256 with 64), block 0's 3x3 at 4x4
+# (K split 16 ways, then splitk_reduce_kernel) and block 11's last 1x1 (the
+# 16-byte route); outputs of unit scale, so K1's float32 tolerances (atol,
+# rtol) hold them against float64 F.conv2d
+BLOCK_CONV_TIMED = (("3x3", 7, "conv_1"), ("3x3", 11, "conv_1"),
+                    ("splitk_reduce", 0, "conv_1"), ("1x1", 11, "conv_3"))
+BLOCK_CONV_TOL = (1e-5, 2e-4)
 # the transform search: the self-target is warped by T_STAR (s, tx, ty), and
 # every generation refines z by 10 Adam steps; the entry point's 50 x 10
 # search and 30 x 30 + 300 latent search cut to 5 x 10 and 2 x 10 + 30
@@ -855,6 +883,100 @@ def _mod_levels(dtype):
     return case
 
 
+def _block_conv_route(k, splits):
+    """The piece of the block convolution kernel a call runs: ``1x1`` (the
+    16-byte route), ``splitk_reduce`` (a 3x3 with K split, then reduced) or
+    ``3x3`` (the 4-byte gather, K whole)."""
+    return "1x1" if k == 1 else "splitk_reduce" if splits > 1 else "3x3"
+
+
+def _genblock_shapes(rows=POP):
+    """BigGAN-deep-256's GenBlock convolutions, read from a generator built
+    on the ``meta`` device (no memory, no weights)."""
+    import torch
+    from pix2latent_tpu_torch.models.biggan import (BigGANDeepGenerator,
+                                                    genblock_conv_shapes)
+    with torch.device("meta"):
+        generator = BigGANDeepGenerator("biggan-deep-256")
+    return genblock_conv_shapes(generator, rows)
+
+
+def _block_conv_case(route, block, layer, rows=POP):
+    """The block convolution kernel at GenBlock ``block``'s ``layer`` at
+    ``rows`` images, which runs ``route`` (``_block_conv_route``, checked):
+    forward and input gradient against float64 F.conv2d,
+    two calls bitwise equal; timed beside cuDNN (its heuristic choice, the
+    plain version here, and under ``cudnn.benchmark``, as a library time)
+    and the least time of the work (``p2l_bench/flops/roofline.least_ms``:
+    x, the weight and y once, and the products once at the TF32 rate)."""
+    import torch
+    import torch.nn.functional as F
+    from p2l_bench.flops.roofline import conv_ops, least_ms
+    from pix2latent_tpu_torch.ops import block_conv as BC
+    from pix2latent_tpu_torch.utils.device import resolve_device
+
+    resolve_device("cuda")      # float32 as the port runs it: TF32 off
+    x_shape, w_shape = next((x, w) for b, l, x, w in _genblock_shapes(rows)
+                            if (b, l) == (block, layer))
+    n, cin, h, w = x_shape
+    cout, _, k, _ = w_shape
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    x = torch.randn(x_shape, generator=gen, device="cuda")
+    wt = torch.randn(w_shape, generator=gen, device="cuda") / (cin * k * k) ** 0.5
+    b = torch.randn(cout, generator=gen, device="cuda")
+    g = torch.randn((n, cout, h, w), generator=gen, device="cuda")
+    fwd_pack, bwd_pack = BC.packed_weights(wt)
+    run_fwd = lambda: BC.kernel_conv(x, fwd_pack, b, k)
+    run_bwd = lambda: BC.kernel_conv(g, bwd_pack, None, k)
+    y, dx = run_fwd(), run_bwd()
+    deterministic = torch.equal(y, run_fwd()) and torch.equal(dx, run_bwd())
+    xd = x.double().requires_grad_(True)
+    y_ref = F.conv2d(xd, wt.double(), b.double(), padding=k // 2)
+    y_ref.backward(g.double())
+    atol, rtol = BLOCK_CONV_TOL
+    errs = {}
+    for key, got, want in (("fwd", y, y_ref.detach()), ("bwd", dx, xd.grad)):
+        err = (got.double() - want).abs()
+        errs[key] = (float(err.max()), bool((err <= atol * max(
+            1.0, float(want.abs().max())) + rtol * want.abs()).all()))
+    del xd, y_ref
+    torch.cuda.empty_cache()
+    splits = {"fwd": BC.kernel_splits(n, fwd_pack.shape[-1], h, w, cout, k),
+              "bwd": BC.kernel_splits(n, bwd_pack.shape[-1], h, w, cin, k)}
+    case = {"kernel": "block_conv", "route": route, "block": block,
+            "layer": layer, "x_shape": list(x_shape), "w_shape": list(w_shape),
+            "dtype": "float32", "design": "3xtf32", "tol": [atol, rtol],
+            "fwd_splits": splits["fwd"], "bwd_splits": splits["bwd"],
+            "fwd_max_abs_err": errs["fwd"][0], "bwd_max_abs_err": errs["bwd"][0],
+            "deterministic": deterministic}
+    runs = all(_block_conv_route(k, splits[key]) == route for key in splits)
+    case["ok"] = errs["fwd"][1] and errs["bwd"][1] and deterministic and runs
+    pad = [k // 2, k // 2]
+    cudnn_fwd = lambda: F.conv2d(x, wt, b, padding=k // 2)
+    cudnn_bwd = lambda: torch.ops.aten.convolution_backward(
+        g, x, wt, None, [1, 1], pad, [1, 1], False, [0, 0], 1,
+        [True, False, False])
+    case["fwd_ms"], case["bwd_ms"] = cuda_ms(run_fwd), cuda_ms(run_bwd)
+    case["plain_fwd_ms"], case["plain_bwd_ms"] = (cuda_ms(cudnn_fwd),
+                                                  cuda_ms(cudnn_bwd))
+    torch.backends.cudnn.benchmark = True
+    try:
+        case["library_fwd_ms"] = cuda_ms(cudnn_fwd, warmup=5)
+        case["library_bwd_ms"] = cuda_ms(cudnn_bwd, warmup=5)
+    finally:
+        torch.backends.cudnn.benchmark = False
+    ops = conv_ops(n, cin, cout, k, h, w)
+    bytes_moved = 4 * (n * cin * h * w + cout * cin * k * k + n * cout * h * w)
+    for key in ("fwd", "bwd"):
+        case[f"{key}_bound_ms"] = least_ms(bytes_moved, ops)
+        case[f"{key}_bound_by"] = ("bytes" if bytes_moved / PEAK_BYTES
+                                   > ops / TENSOR_CORE_FLOPS["float32"]
+                                   else "operations")
+        case[f"{key}_tflops"] = ops / case[f"{key}_ms"] / 1e9
+    return case
+
+
 def phase_kernels():
     import torch
     t0 = time.perf_counter()
@@ -887,9 +1009,16 @@ def phase_kernels():
                           path="ffhq_path"))
         cases.append(_mod_levels(dtype))
         torch.cuda.empty_cache()
+    for route, block, layer in BLOCK_CONV_TIMED:
+        cases.append(_block_conv_case(route, block, layer))
+        torch.cuda.empty_cache()
     emit({"phase": "kernels",
           "kernels": ["sagan_attention_fwd", "sagan_attention_bwd",
-                      "fir_blur_fwd", "fir_blur_bwd", "mod_backward"],
+                      "fir_blur_fwd", "fir_blur_bwd", "mod_backward",
+                      "block_conv_fwd", "block_conv_bwd",
+                      "block_conv_splitk_reduce_fwd",
+                      "block_conv_splitk_reduce_bwd",
+                      "block_conv_1x1_fwd", "block_conv_1x1_bwd"],
           "cases": cases, "seconds": time.perf_counter() - t0})
     bad = [c for c in cases if not c["ok"]]
     if bad:
@@ -902,6 +1031,7 @@ def phase_main_path(generations, final_steps):
 
     import torch
     from pix2latent_tpu_torch.ops import attention as A
+    from pix2latent_tpu_torch.ops import block_conv as BC
     from pix2latent_tpu_torch.optimizers import BasinCMAOptimizer
     from pix2latent_tpu_torch.utils.flagship import build
 
@@ -910,18 +1040,23 @@ def phase_main_path(generations, final_steps):
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     A.reset_launch_counts()
+    BC.reset_launch_counts()
     t0 = time.perf_counter()
     variables, outs, final = opt.optimize(generations, GRAD_STEPS,
                                           last_grad_steps=final_steps)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = A.launch_counts()
+    conv_counts = BC.launch_counts()
 
     out = opt.out
     tell_mins = opt.losses
     final_min = float(final[0][1]["loss"].min())
     expect = {"fwd": generations * (GRAD_STEPS + 1) + final_steps,
               "bwd": generations * GRAD_STEPS + final_steps}
+    # in bfloat16 every GenBlock convolution stays on F.conv2d (cuDNN)
+    expect_conv = {"fwd": 0, "bwd": 0,
+                   "plain": 4 * len(model.generator.layers) * expect["fwd"]}
     steady = opt.gen_seconds[1:] or opt.gen_seconds
     gen_s = statistics.mean(steady)
     result = {
@@ -938,11 +1073,13 @@ def phase_main_path(generations, final_steps):
         "tell_min_per_generation": tell_mins, "final_min_loss": final_min,
         "out_shape": list(out.shape), "collage_shape": list(outs[0].shape),
         "attention_launches": counts, "expected_launches": expect,
+        "block_conv_calls": conv_counts, "expected_block_conv_calls": expect_conv,
         "peak_memory_bytes": torch.cuda.max_memory_allocated()}
     emit(result)
     assert opt.num_samples == POP, opt.num_samples
     assert tuple(out.shape) == (POP, 256, 256, 3), out.shape
     assert all(math.isfinite(v) for v in tell_mins), tell_mins
+    assert conv_counts == expect_conv, (conv_counts, expect_conv)
     assert math.isfinite(final_min) and final_min < tell_mins[0], (
         f"no convergence: first generation {tell_mins[0]}, final {final_min}")
     assert counts == expect, (counts, expect)
@@ -1294,6 +1431,7 @@ def phase_biggan_f32_path(generations, final_steps, cases, save_dir):
     from pix2latent_tpu_torch.examples import common
     from pix2latent_tpu_torch.examples import invert_biggan_basincma as ex
     from pix2latent_tpu_torch.ops import attention as A
+    from pix2latent_tpu_torch.ops import block_conv as BC
     from pix2latent_tpu_torch.optimizers import BasinCMAOptimizer
     from pix2latent_tpu_torch.utils.params_io import (save_params_npz,
                                                       to_jax_params)
@@ -1310,12 +1448,14 @@ def phase_biggan_f32_path(generations, final_steps, cases, save_dir):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     A.reset_launch_counts()
+    BC.reset_launch_counts()
     t0 = time.perf_counter()
     variables, outs, final = opt.optimize(generations, GRAD_STEPS,
                                           last_grad_steps=final_steps)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = A.launch_counts()
+    conv_counts = BC.launch_counts()
 
     full = ex.schedule(argparse.Namespace(smoke=False))
     out = opt.out
@@ -1323,6 +1463,11 @@ def phase_biggan_f32_path(generations, final_steps, cases, save_dir):
     final_min = float(final[0][1]["loss"].min())
     expect = {"fwd": generations * (GRAD_STEPS + 1) + final_steps,
               "bwd": generations * GRAD_STEPS + final_steps}
+    # every GenBlock convolution on the block convolution kernel: four a
+    # block a forward and a backward, none on F.conv2d
+    blocks = 4 * len(model.generator.layers)
+    expect_conv = {"fwd": blocks * expect["fwd"], "bwd": blocks * expect["bwd"],
+                   "plain": 0}
     steady = opt.gen_seconds[1:] or opt.gen_seconds
     gen_s = statistics.mean(steady)
     # K1's float32 forward + backward at this shape, from the kernels phase,
@@ -1349,6 +1494,7 @@ def phase_biggan_f32_path(generations, final_steps, cases, save_dir):
         "tell_min_per_generation": tell_mins, "final_min_loss": final_min,
         "out_shape": list(out.shape), "collage_shape": list(outs[0].shape),
         "attention_launches": counts, "expected_launches": expect,
+        "block_conv_calls": conv_counts, "expected_block_conv_calls": expect_conv,
         "peak_memory_bytes": torch.cuda.max_memory_allocated()}
     emit(result)
     assert opt.num_samples == POP, opt.num_samples
@@ -1361,6 +1507,7 @@ def phase_biggan_f32_path(generations, final_steps, cases, save_dir):
         f"no convergence: first generation {tell_mins[0]}, final {final_min}")
     assert counts == expect, (counts, expect)
     assert counts["fwd"] > 0 and counts["bwd"] > 0
+    assert conv_counts == expect_conv, (conv_counts, expect_conv)
 
     common.finish(args, opt, variables, outs, final, str(save_dir))
     save_params_npz(str(Path(save_dir) / "weights.npz"), to_jax_params(model))
@@ -1368,7 +1515,7 @@ def phase_biggan_f32_path(generations, final_steps, cases, save_dir):
     with torch.no_grad():
         render = model(variables["input"]["z"], variables["input"]["c"])
     np.save(Path(save_dir) / "best_render.npy", render[best].cpu().numpy())
-    return counts
+    return counts, conv_counts
 
 
 def transform_expected_launches():
@@ -2825,6 +2972,7 @@ def main(argv=None):
 
 def _run_phases(args, t0, work):
     import torch
+    from pix2latent_tpu_torch.ops import block_conv as BC
 
     env = phase_env()
     phase_build()
@@ -2838,7 +2986,7 @@ def _run_phases(args, t0, work):
                                   args.ffhq_final_steps)
     phase_ffhq_whole_step()
     biggan_results = Path(work) / "biggan_f32"
-    f32_counts = phase_biggan_f32_path(args.biggan_generations,
+    f32_counts, conv_counts = phase_biggan_f32_path(args.biggan_generations,
                                        args.biggan_final_steps, cases,
                                        biggan_results)
     search_counts, latent_counts = phase_transform_path()
@@ -2962,6 +3110,32 @@ def _run_phases(args, t0, work):
             "max_abs_err": case["max_abs_err"], "ms": case["ms"],
             "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
             "bound_by": case["bound_by"], "library_ms": case["library_ms"]})
+    # how many of a forward's (and a backward's) 48 GenBlock convolutions at
+    # population 18 run each piece of the block convolution kernel
+    per_pass = {}
+    for _, _, (n, cin, h, w), (cout, _, k, _) in _genblock_shapes():
+        for key, m, c in (("fwd", cout, cin), ("bwd", cin, cout)):
+            splits = BC.kernel_splits(n, -(-c // BC.BK) * BC.BK, h, w, m, k)
+            route = _block_conv_route(k, splits)
+            per_pass[route, key] = per_pass.get((route, key), 0) + 1
+    for key in ("fwd", "bwd"):
+        for case in (c for c in cases if c["kernel"] == "block_conv"):
+            name = ("block_conv" if case["route"] == "3x3"
+                    else f"block_conv_{case['route']}")
+            kernels.append({
+                "name": f"{name}_{key}", "route": "cuda",
+                "source": "pix2latent_tpu_torch/csrc/block_conv.cu",
+                "replaces": "none (cuDNN's convolutions of GenBlock)",
+                "launched_by": "biggan_f32_path (GenBlock, every block)",
+                "launches": conv_counts[key],
+                "of_48_a_pass": per_pass[case["route"], key],
+                "shape": case["x_shape"],
+                "weight": case["w_shape"], "splits": case[f"{key}_splits"],
+                "max_abs_err": case[f"{key}_max_abs_err"],
+                "ms": case[f"{key}_ms"], "plain_ms": case[f"plain_{key}_ms"],
+                "bound_ms": case[f"{key}_bound_ms"],
+                "bound_by": case[f"{key}_bound_by"],
+                "library_ms": case[f"library_{key}_ms"]})
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     emit({"kernels": kernels})
     print(env["nvidia_smi"], flush=True)

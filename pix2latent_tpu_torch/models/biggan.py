@@ -4,10 +4,11 @@
 The same architecture (Brock et al., arXiv:1809.11096, BigGAN-deep as in
 HuggingFace's ``pytorch_pretrained_biggan``): the 128-d class embedding
 concatenated with z conditions every BatchNorm; bottleneck residual blocks
-with nearest-neighbour upsampling and channel-truncation skips; one SA-GAN
-self-attention block at 64x64, which runs the hand-written attention kernel
-on the card (``ops/attention.py``); BatchNorm over standing statistics
-interpolated by truncation.
+with nearest-neighbour upsampling and channel-truncation skips, whose
+convolutions run the block convolution kernel on the card in float32
+(``ops/block_conv.py``); one SA-GAN self-attention block at 64x64, which
+runs the hand-written attention kernel on the card (``ops/attention.py``);
+BatchNorm over standing statistics interpolated by truncation.
 
 Inputs ``z`` and ``c`` are ``[pop, 128]``; the output is NHWC float32 in
 [-1, 1]. Inside, activations are NCHW. Parameters are float32; with
@@ -31,6 +32,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from pix2latent_tpu_torch.ops.attention import sagan_attention
+from pix2latent_tpu_torch.ops.block_conv import block_conv2d
 from pix2latent_tpu_torch.utils.device import resolve_device
 from pix2latent_tpu_torch.utils.params_io import (_flatten, from_jax_params,
                                                   jax_to_torch_array,
@@ -178,7 +180,9 @@ class SlicedOutputConv(nn.Module):
 class GenBlock(nn.Module):
     """BigGAN-deep bottleneck residual block: four cond-BN + ReLU + conv
     stages at channels/4, optional 2x upsample before the middle 3x3s, skip
-    by channel truncation + upsample."""
+    by channel truncation + upsample. The four convolutions go through
+    ``block_conv2d``: the hand-written kernel for float32 on the card,
+    ``F.conv2d`` otherwise."""
 
     def __init__(self, in_size, out_size, up_sample=False, reduction_factor=4):
         super().__init__()
@@ -196,19 +200,36 @@ class GenBlock(nn.Module):
 
     def forward(self, x, truncation, cond):
         h = F.relu(self.bn_0(x, truncation, cond))
-        h = _conv(h, self.conv_0)
+        h = block_conv2d(h, self.conv_0.weight, self.conv_0.bias)
         h = F.relu(self.bn_1(h, truncation, cond))
         if self.up_sample:
             h = _upsample2x(h)
-        h = _conv(h, self.conv_1, padding=1)
+        h = block_conv2d(h, self.conv_1.weight, self.conv_1.bias, padding=1)
         h = F.relu(self.bn_2(h, truncation, cond))
-        h = _conv(h, self.conv_2, padding=1)
+        h = block_conv2d(h, self.conv_2.weight, self.conv_2.bias, padding=1)
         h = F.relu(self.bn_3(h, truncation, cond))
-        h = _conv(h, self.conv_3)
+        h = block_conv2d(h, self.conv_3.weight, self.conv_3.bias)
         skip = x[:, :self.out_size]
         if self.up_sample:
             skip = _upsample2x(skip)
         return skip + h
+
+
+def genblock_conv_shapes(generator, rows):
+    """Every ``GenBlock`` convolution of ``generator`` (a
+    ``BigGANDeepGenerator``, on any device, ``meta`` too) at ``rows``
+    images, read from its blocks' weights: ``(block, layer, input shape [n,
+    cin, h, w], weight shape [cout, cin, k, k])`` in the order the forward
+    runs them."""
+    out, res = [], 4
+    for i in range(len(generator.layers)):
+        block = getattr(generator, f"block_{i}")
+        for name in ("conv_0", "conv_1", "conv_2", "conv_3"):
+            if name == "conv_1" and block.up_sample:
+                res *= 2
+            w = tuple(getattr(block, name).weight.shape)
+            out.append((i, name, (rows, w[1], res, res), w))
+    return out
 
 
 class BigGANDeepGenerator(nn.Module):
