@@ -13,6 +13,9 @@ from __future__ import annotations
 from typing import Callable
 
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
+
+from pix2latent_tpu_torch.utils import profiling
 
 
 class FunctionModel(nn.Module):
@@ -33,3 +36,23 @@ def as_model(model) -> nn.Module:
     if callable(model):
         return FunctionModel(model)
     raise TypeError(f"cannot wrap {type(model)} as a model")
+
+
+def checkpointed(block: Callable, *args, res: int):
+    """``block(*args)`` under ``torch.utils.checkpoint`` (the JAX package's
+    ``nn.remat``): the backward recomputes the block's activations instead
+    of keeping them. The block must draw no random numbers: the RNG state
+    is not stashed for the recompute. Each recomputation is a ``recompute``
+    span (attr ``res``, the block's resolution); it runs inside the
+    backward that needs it, so the span sits under that ``backward`` span.
+    The first forward records nothing."""
+    calls = []
+
+    def run(*inputs):
+        if not calls:
+            calls.append(True)
+            return block(*inputs)
+        with profiling.span("recompute", res=res):
+            return block(*inputs)
+    return checkpoint(run, *args, use_reentrant=False,
+                      preserve_rng_state=False)

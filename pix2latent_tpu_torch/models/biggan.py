@@ -29,8 +29,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
+from pix2latent_tpu_torch.models.base import checkpointed
 from pix2latent_tpu_torch.ops.attention import sagan_attention
 from pix2latent_tpu_torch.ops.block_conv import block_conv2d
 from pix2latent_tpu_torch.utils.device import resolve_device
@@ -274,9 +274,8 @@ class BigGANDeepGenerator(nn.Module):
             if torch.is_grad_enabled() and (self.remat or (
                     self.remat_from_res and res >= self.remat_from_res)):
                 # the JAX package's nn.remat: the backward recomputes the
-                # block's activations; the block draws no random numbers
-                h = checkpoint(block, h, truncation, cond, use_reentrant=False,
-                               preserve_rng_state=False)
+                # block's activations
+                h = checkpointed(block, h, truncation, cond, res=res)
             else:
                 h = block(h, truncation, cond)
         h = F.relu(self.bn_out(h, truncation))

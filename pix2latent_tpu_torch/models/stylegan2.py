@@ -48,8 +48,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
+from pix2latent_tpu_torch.models.base import checkpointed
 from pix2latent_tpu_torch.ops.mod_backward import modulate
 from pix2latent_tpu_torch.ops.upfirdn2d import Blur, Upsample, fused_leaky_relu
 from pix2latent_tpu_torch.utils.device import resolve_device
@@ -349,13 +349,12 @@ class StyleGAN2Generator(nn.Module):
         ``torch.utils.checkpoint`` (the JAX package's ``nn.remat``) when
         ``remat_from_res`` is set, ``res`` is at or above it and gradients
         are on, so the backward recomputes their activations instead of
-        keeping them; else directly. The blocks draw no random numbers, so
-        the RNG state is not stashed for the recompute."""
+        keeping them (each recomputation a ``recompute`` span with
+        ``res``, :func:`models.base.checkpointed`); else directly."""
         if not (self.remat_from_res and res >= self.remat_from_res
                 and torch.is_grad_enabled()):
             return lambda block, *args: block(*args)
-        return lambda block, *args: checkpoint(
-            block, *args, use_reentrant=False, preserve_rng_state=False)
+        return lambda block, *args: checkpointed(block, *args, res=res)
 
 
 def _equalized(path: str, arr: np.ndarray) -> np.ndarray:

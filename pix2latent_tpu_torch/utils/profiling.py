@@ -9,14 +9,16 @@ compilations.
 Spans (:func:`span`) mark the layers of the hot path: the drivers'
 ``generation``, ``ask``, ``strategy_tell`` and ``sync``, the execution
 core's ``ctx``, ``inner``, ``step``, ``hook``, ``forward``, ``loss``,
-``backward``, ``adam``, ``chunk``, ``eval`` and ``tell_loss``, and the
-mesh's ``gather``. They record only while a ``torch.profiler`` session is
-active (:func:`trace`, or any other profiler): there is no switch of their
-own. Off, a span is one boolean check and a shared no-op. On, each span
-opens a host range ``p2l::<name>`` in the profiler's trace, keeps a record
-with its parent, attributes and host interval on the profiler's clock
-(``time.time_ns``), and on a card records a pair of CUDA events on the
-current stream; nothing is read back until :func:`spans`.
+``backward``, ``adam``, ``chunk``, ``eval`` and ``tell_loss``, the
+mesh's ``gather``, and the generators' ``recompute`` of a checkpointed
+block (``models/base.checkpointed``). They record only while a
+``torch.profiler`` session is active (:func:`trace`, or any other
+profiler): there is no switch of their own. Off, a span is one boolean
+check and a shared no-op. On, each span opens a host range
+``p2l::<name>`` in the profiler's trace, keeps a record with its parent,
+attributes and host interval on the profiler's clock (``time.time_ns``),
+and on a card records a pair of CUDA events on the current stream;
+nothing is read back until :func:`spans`.
 """
 
 from __future__ import annotations
@@ -59,7 +61,9 @@ def trace(log_dir: str):
 
 _OFF = contextlib.nullcontext()
 _RECORDS = []
-_OPEN = []            # the open spans, innermost last (the host thread's)
+# the open spans, innermost last: the host thread's, and those of
+# autograd's device thread while the host thread waits in a backward
+_OPEN = []
 _IDS = itertools.count(1)
 
 

@@ -6,10 +6,14 @@ core and the mesh record their tree: ``generation`` > ``ask``, ``ctx``,
 ``inner`` > ``step`` > ``hook``, ``adam``, ``forward``, ``loss``,
 ``backward``; ``tell_loss`` and ``eval`` > ``hook``, ``forward``, ``loss``;
 ``strategy_tell`` > ``sync`` (``eigh``); the loops' ``sync`` reads;
-``chunk`` where the population runs in several chunks; ``gather``. Each
-record sits on the profiler's own clock. On the card (``cuda``-marked, so
-skipped here) one generation shows that recording adds no host sync and
-that the ``sync`` spans hold every sync the drivers' loop makes.
+``chunk`` where the population runs in several chunks; ``gather``; and
+the generators' ``recompute`` of each checkpointed block inside the
+``backward`` that needs it (a tiny StyleGAN2 with ``remat_from_res`` 16,
+BigGAN-deep-128 at channel width 8). Each record sits on the profiler's
+own clock. On the card (``cuda``-marked, so skipped here) one generation
+shows that recording adds no host sync and that the ``sync`` spans hold
+every sync the drivers' loop makes, and the recompute, run on autograd's
+device thread, still sits under the host's ``backward`` span.
 
 The file imports neither JAX nor the JAX package, so it also runs on a
 machine without them:
@@ -27,7 +31,9 @@ from torch.autograd import profiler as autograd_profiler
 from torch.profiler import ProfilerActivity, profile
 
 import pix2latent_tpu_torch.loss_functions as LF
+import pix2latent_tpu_torch.models.stylegan2 as S
 from pix2latent_tpu_torch import VariableManager, hooks
+from pix2latent_tpu_torch.models.biggan import BigGAN
 from pix2latent_tpu_torch.models.toy import make_toy_model
 from pix2latent_tpu_torch.optimizers import BasinCMAOptimizer, CMAOptimizer
 from pix2latent_tpu_torch.parallel.mesh import Mesh
@@ -215,6 +221,122 @@ def test_a_span_open_when_the_profiler_stops_is_kept():
     assert profiling.spans() == []
 
 
+def _tiny_stylegan2(monkeypatch, remat_from_res):
+    """StyleGAN2 at 32 px with 8 channels a layer: blocks at 8, 16 and 32
+    px, those from ``remat_from_res`` on checkpointed."""
+    monkeypatch.setattr(S, "channels_for", lambda res, cm=2: 8)
+    monkeypatch.setitem(S.StyleGAN2.MODELS, "cars", 32)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        return S.StyleGAN2("cars", remat_from_res=remat_from_res,
+                           init="equalized", device="cpu")
+
+
+def _stylegan2_optimizer(model):
+    with torch.no_grad():
+        target = model(z=torch.randn(1, 512, generator=torch.Generator()
+                                     .manual_seed(1)))[0]
+    vm = VariableManager(seed=0, device="cpu")
+    vm.register("z", shape=(512,), grad_free=True, learning_rate=0.05,
+                hook_fn=hooks.Normalize())
+    vm.register("target", shape=(32, 32, 3), var_type="output",
+                requires_grad=False, default=target)
+    return BasinCMAOptimizer(model, vm, PrecomputedL1(), seed=3,
+                             device="cpu")
+
+
+def test_recompute_spans_sit_under_each_steps_backward(monkeypatch):
+    opt = _stylegan2_optimizer(_tiny_stylegan2(monkeypatch, 16))
+    _, recs = _profiled(lambda: opt.optimize(2, 3, last_grad_steps=2))
+    by_id, children = _tree(recs)
+    steps = [r for r in recs if r["name"] == "step"]
+    assert len(steps) == 2 * 3 + 2
+    for s in steps:
+        backward = [c for c in children[s["id"]] if c["name"] == "backward"]
+        assert len(backward) == 1
+        # the up-conv, the conv and ToRGB at 16 and at 32 px, the last
+        # block's first
+        assert [(c["name"], c["attrs"]) for c in children[
+            backward[0]["id"]]] == [("recompute", {"res": 32})] * 3 + [
+            ("recompute", {"res": 16})] * 3
+    recompute = [r for r in recs if r["name"] == "recompute"]
+    assert len(recompute) == 6 * len(steps)
+    for r in recompute:
+        b = by_id[r["parent"]]
+        assert b["name"] == "backward" and by_id[b["parent"]]["name"] == \
+            "step"
+        assert b["start_ns"] <= r["start_ns"] <= r["end_ns"] <= b["end_ns"]
+
+
+@pytest.mark.parametrize("case", ["no_remat", "no_grad", "no_profiler"])
+def test_no_recompute_span(case, monkeypatch):
+    model = _tiny_stylegan2(monkeypatch, 0 if case == "no_remat" else 16)
+    z = torch.randn(2, 512, generator=torch.Generator().manual_seed(2))
+
+    def run():
+        if case == "no_grad":
+            with torch.no_grad():
+                model(z=z)
+            return
+        zt = z.clone().requires_grad_(True)
+        model(z=zt).square().sum().backward()
+        assert zt.grad.abs().max() > 0
+
+    if case == "no_profiler":
+        run()
+        assert profiling.spans() == []
+        return
+    _, recs = _profiled(run)
+    assert recs == []
+
+
+def test_recompute_span_leaves_the_gradient_bitwise(monkeypatch):
+    model = _tiny_stylegan2(monkeypatch, 16)
+    z = torch.randn(3, 512, generator=torch.Generator().manual_seed(3))
+    cot = torch.randn(3, 32, 32, 3, generator=torch.Generator()
+                      .manual_seed(4))
+
+    def grad():
+        zt = z.clone().requires_grad_(True)
+        (model(z=zt) * cot).sum().backward()
+        return zt.grad
+
+    plain = grad()
+    traced = []
+    _, recs = _profiled(lambda: traced.append(grad()))
+    assert sum(r["name"] == "recompute" for r in recs) == 6
+    assert torch.equal(traced[0], plain)
+
+
+@pytest.mark.parametrize("remat", [dict(remat=True),
+                                   dict(remat_from_res=64)])
+def test_biggan_recompute_spans(remat):
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        model = BigGAN("biggan-deep-128", channel_width=8, device="cpu",
+                       **remat)
+    res, want = 4, []
+    for up, _, _ in model.generator.layers:
+        res *= 2 if up else 1
+        if remat.get("remat") or res >= remat.get("remat_from_res", 0):
+            want.append(res)
+    z = torch.randn(2, 128, generator=torch.Generator().manual_seed(5))
+    c = model.get_class_embedding(153).expand(2, -1)
+
+    def run():
+        zt = z.clone().requires_grad_(True)
+        out = model(zt, c, 0.5)
+        with profiling.span("backward"):
+            out.square().sum().backward()
+
+    _, recs = _profiled(run)
+    assert recs[0]["name"] == "backward"
+    got = [r for r in recs if r["name"] == "recompute"]
+    # the backward recomputes the blocks from the last
+    assert [r["attrs"] for r in got] == [{"res": r} for r in want[::-1]]
+    assert all(r["parent"] == recs[0]["id"] for r in got)
+
+
 def _syncs_of(run):
     """``run()`` under the sync debug mode: for each synchronizing call,
     the names of the spans open around it, from the outermost in, and the
@@ -274,3 +396,31 @@ def test_recording_adds_no_sync_and_sync_spans_hold_the_loops_syncs():
     assert {sid for _, sid in in_gen} == {r["id"] for r in syncs}
     assert all(r["device_ms"] is not None and r["device_ms"] >= 0
                for r in recs)
+
+
+@pytest.mark.cuda
+def test_recompute_on_autograds_device_thread_sits_under_backward(
+        monkeypatch):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    monkeypatch.setattr(S, "channels_for", lambda res, cm=2: 8)
+    monkeypatch.setitem(S.StyleGAN2.MODELS, "cars", 32)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        model = S.StyleGAN2("cars", remat_from_res=16, init="equalized",
+                            fused_mod_bwd=True, fir_kernel=True,
+                            device="cuda")
+    z = torch.randn(2, 512, device="cuda", requires_grad=True)
+
+    def run():
+        out = model(z=z)
+        with profiling.span("backward"):
+            out.square().sum().backward()
+        torch.cuda.synchronize()
+
+    _, recs = _profiled(run, cuda=True)
+    got = [r for r in recs if r["name"] == "recompute"]
+    assert [r["attrs"]["res"] for r in got] == [32] * 3 + [16] * 3
+    assert all(r["parent"] == recs[0]["id"] for r in got)
+    assert all(r["device_ms"] is not None and r["device_ms"] >= 0
+               for r in got)
