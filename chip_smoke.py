@@ -65,7 +65,15 @@ Phases, one JSON line each; any failure raises and exits non-zero:
      tolerances on outputs of unit scale, two calls bitwise equal; timed
      beside cuDNN's heuristic choice (``plain_*_ms``) and cuDNN under
      ``cudnn.benchmark`` (``library_*_ms``), timings only, and the least
-     time of its work (``p2l_bench/flops/roofline.least_ms``).
+     time of its work (``p2l_bench/flops/roofline.least_ms``);
+   - the same kernel at five StyleGAN2 modulated convolutions at population
+     22 (``SG2_CONV_TIMED``): cars-512's 64 px 3x3 with 512 channels and
+     512 px 3x3 with 64 (the stride-1 route), its 128 px up-convolution
+     (the up route's four phases, then the stride-2 gather of its input
+     gradient), and FFHQ-1024's 1024 px 3x3 and up-convolution (32 output
+     channels: the 32-row tile), forward and input gradient against float64
+     ``F.conv2d`` and ``F.conv_transpose2d`` (in row chunks), two calls
+     bitwise equal, timed as above.
    Times (CUDA events, median of 25 runs; a device-side wait before each
    timed launch keeps the host's time to launch it outside the events) of
    the kernel, the plain version
@@ -299,8 +307,11 @@ K3 entry names its loader in ``launched_by``; the block convolution
 kernel's pieces, ``block_conv`` (the 3x3s with K whole),
 ``block_conv_splitk_reduce`` and ``block_conv_1x1``, each ``_fwd`` and
 ``_bwd`` at its timed GenBlock shapes, with ``biggan_f32_path``'s calls and
-how many of a pass's 48 at population 18 run that piece), the card's
-``nvidia-smi`` line and the result line.
+how many of a pass's 48 at population 18 run that piece), and its StyleGAN2
+routes, ``block_conv_sg2_3x3`` and ``block_conv_sg2_up``, each ``_fwd`` and
+``_bwd`` at its timed shapes, with ``cars_ng_path``'s calls (FFHQ's shapes
+run in no phase here: ``ffhq_path`` keeps the bf16 recipe, on cuDNN); the
+card's ``nvidia-smi`` line and the result line.
 It exits non-zero, printing no result, without a CUDA device or without the
 package beside it.
 """
@@ -366,6 +377,11 @@ MOD_TOL = {"float32": ((1e-6, 0.0), (5e-5, 1e-5)),
 BLOCK_CONV_TIMED = (("3x3", 7, "conv_1"), ("3x3", 11, "conv_1"),
                     ("splitk_reduce", 0, "conv_1"), ("1x1", 11, "conv_3"))
 BLOCK_CONV_TOL = (1e-5, 2e-4)
+# StyleGAN2's modulated convolutions timed in the kernels phase: (model,
+# layer) as ``models/stylegan2.modulated_conv_shapes`` names them
+SG2_CONV_TIMED = (("cars", "convs_7"), ("cars", "convs_13"),
+                  ("cars", "convs_8"), ("ffhq", "convs_15"),
+                  ("ffhq", "convs_14"))
 # the transform search: the self-target is warped by T_STAR (s, tx, ty), and
 # every generation refines z by 10 Adam steps; the entry point's 50 x 10
 # search and 30 x 30 + 300 latent search cut to 5 x 10 and 2 x 10 + 30
@@ -905,13 +921,10 @@ def _block_conv_case(route, block, layer, rows=POP):
     """The block convolution kernel at GenBlock ``block``'s ``layer`` at
     ``rows`` images, which runs ``route`` (``_block_conv_route``, checked):
     forward and input gradient against float64 F.conv2d,
-    two calls bitwise equal; timed beside cuDNN (its heuristic choice, the
-    plain version here, and under ``cudnn.benchmark``, as a library time)
-    and the least time of the work (``p2l_bench/flops/roofline.least_ms``:
-    x, the weight and y once, and the products once at the TF32 rate)."""
+    two calls bitwise equal; timed beside cuDNN (``_time_conv_case``)."""
     import torch
     import torch.nn.functional as F
-    from p2l_bench.flops.roofline import conv_ops, least_ms
+    from p2l_bench.flops.roofline import conv_ops
     from pix2latent_tpu_torch.ops import block_conv as BC
     from pix2latent_tpu_torch.utils.device import resolve_device
 
@@ -957,23 +970,119 @@ def _block_conv_case(route, block, layer, rows=POP):
     cudnn_bwd = lambda: torch.ops.aten.convolution_backward(
         g, x, wt, None, [1, 1], pad, [1, 1], False, [0, 0], 1,
         [True, False, False])
-    case["fwd_ms"], case["bwd_ms"] = cuda_ms(run_fwd), cuda_ms(run_bwd)
-    case["plain_fwd_ms"], case["plain_bwd_ms"] = (cuda_ms(cudnn_fwd),
-                                                  cuda_ms(cudnn_bwd))
+    _time_conv_case(case, (run_fwd, run_bwd), (cudnn_fwd, cudnn_bwd),
+                    conv_ops(n, cin, cout, k, h, w),
+                    4 * (x.numel() + wt.numel() + g.numel()))
+    return case
+
+
+def _time_conv_case(case, kernel, cudnn, ops, bytes_moved):
+    """Times a block convolution case's ``kernel`` (forward, input
+    gradient) beside ``cudnn``'s (its heuristic choice, the plain version,
+    and under ``cudnn.benchmark``, as a library time) into ``case``, with
+    the least time of the work (``p2l_bench/flops/roofline.least_ms``: x,
+    the weight and y once, and the products once at the TF32 rate)."""
+    import torch
+    from p2l_bench.flops.roofline import least_ms
+
+    case["fwd_ms"], case["bwd_ms"] = cuda_ms(kernel[0]), cuda_ms(kernel[1])
+    case["plain_fwd_ms"], case["plain_bwd_ms"] = (cuda_ms(cudnn[0]),
+                                                  cuda_ms(cudnn[1]))
     torch.backends.cudnn.benchmark = True
     try:
-        case["library_fwd_ms"] = cuda_ms(cudnn_fwd, warmup=5)
-        case["library_bwd_ms"] = cuda_ms(cudnn_bwd, warmup=5)
+        case["library_fwd_ms"] = cuda_ms(cudnn[0], warmup=5)
+        case["library_bwd_ms"] = cuda_ms(cudnn[1], warmup=5)
     finally:
         torch.backends.cudnn.benchmark = False
-    ops = conv_ops(n, cin, cout, k, h, w)
-    bytes_moved = 4 * (n * cin * h * w + cout * cin * k * k + n * cout * h * w)
     for key in ("fwd", "bwd"):
         case[f"{key}_bound_ms"] = least_ms(bytes_moved, ops)
         case[f"{key}_bound_by"] = ("bytes" if bytes_moved / PEAK_BYTES
                                    > ops / TENSOR_CORE_FLOPS["float32"]
                                    else "operations")
         case[f"{key}_tflops"] = ops / case[f"{key}_ms"] / 1e9
+
+
+def _sg2_conv_case(model, layer, rows=SG2_POP):
+    """The block convolution kernel at StyleGAN2 ``model``'s modulated conv
+    ``layer`` (``modulated_conv_shapes``) at ``rows`` samples: its stride-1
+    route, or for an up-convolution its up route and the stride-2 gather of
+    the input gradient; forward and input gradient against float64
+    ``F.conv2d`` or ``F.conv_transpose2d`` (a few rows at a time), two calls
+    bitwise equal; timed beside cuDNN (``_time_conv_case``)."""
+    import torch
+    import torch.nn.functional as F
+    from p2l_bench.flops.roofline import conv_ops
+    from pix2latent_tpu_torch.models.stylegan2 import (StyleGAN2,
+                                                       StyleGAN2Generator,
+                                                       modulated_conv_shapes)
+    from pix2latent_tpu_torch.ops import block_conv as BC
+    from pix2latent_tpu_torch.utils.device import resolve_device
+
+    resolve_device("cuda")      # float32 as the port runs it: TF32 off
+    with torch.device("meta"):
+        generator = StyleGAN2Generator(StyleGAN2.MODELS[model])
+    up, x_shape, w_shape = next((u, x, w) for name, u, x, w in
+                                modulated_conv_shapes(generator, rows)
+                                if name == layer)
+    n, cin, h, w = x_shape
+    cout = w_shape[0]
+    out = (2 * h + 1, 2 * w + 1) if up else (h, w)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    x = torch.randn(x_shape, generator=gen, device="cuda")
+    wt = torch.randn(w_shape, generator=gen, device="cuda") / (cin * 9) ** 0.5
+    g = torch.randn((n, cout) + out, generator=gen, device="cuda")
+    fwd_pack, bwd_pack = BC.scaled_packs(wt, 1.0, up)
+    routes = (BC.UP, BC.UP_GRAD) if up else (BC.SAME, BC.SAME)
+    run_fwd = lambda: BC.kernel_conv(x, fwd_pack, None, 3, routes[0])
+    run_bwd = lambda: BC.kernel_conv(g, bwd_pack, None, 3, routes[1])
+    y, dx = run_fwd(), run_bwd()
+    deterministic = torch.equal(y, run_fwd()) and torch.equal(dx, run_bwd())
+    atol, rtol = BLOCK_CONV_TOL
+    errs = {"fwd": [0.0, True], "bwd": [0.0, True]}
+    chunk = max(1, (1 << 27) // max(y[0].numel(), x[0].numel()))
+    for i in range(0, n, chunk):
+        xd = x[i:i + chunk].double().requires_grad_(True)
+        y_ref = (F.conv_transpose2d(xd, wt.double().transpose(0, 1), stride=2)
+                 if up else F.conv2d(xd, wt.double(), padding=1))
+        y_ref.backward(g[i:i + chunk].double())
+        for key, got, want in (("fwd", y[i:i + chunk], y_ref.detach()),
+                               ("bwd", dx[i:i + chunk], xd.grad)):
+            err = (got.double() - want).abs()
+            errs[key][0] = max(errs[key][0], float(err.max()))
+            errs[key][1] &= bool((err <= atol * max(
+                1.0, float(want.abs().max())) + rtol * want.abs()).all())
+            del err
+        del xd, y_ref
+    del y, dx
+    torch.cuda.empty_cache()
+    case = {"kernel": "block_conv", "route": "sg2_up" if up else "sg2_3x3",
+            "model": model, "layer": layer, "x_shape": list(x_shape),
+            "w_shape": list(w_shape), "dtype": "float32", "design": "3xtf32",
+            "tol": [atol, rtol],
+            "fwd_splits": BC.kernel_splits(n, fwd_pack.shape[-1], h, w, cout,
+                                           3, routes[0]),
+            "bwd_splits": BC.kernel_splits(n, bwd_pack.shape[-1], h, w, cin,
+                                           3, routes[1]),
+            "fwd_max_abs_err": errs["fwd"][0], "bwd_max_abs_err": errs["bwd"][0],
+            "deterministic": deterministic}
+    case["ok"] = errs["fwd"][1] and errs["bwd"][1] and deterministic
+    if up:
+        wT = wt.transpose(0, 1)
+        cudnn_fwd = lambda: F.conv_transpose2d(x, wT, stride=2)
+        cudnn_bwd = lambda: torch.ops.aten.convolution_backward(
+            g, x, wT, None, [2, 2], [0, 0], [1, 1], True, [0, 0], 1,
+            [True, False, False])
+    else:
+        cudnn_fwd = lambda: F.conv2d(x, wt, padding=1)
+        cudnn_bwd = lambda: torch.ops.aten.convolution_backward(
+            g, x, wt, None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+            [True, False, False])
+    _time_conv_case(case, (run_fwd, run_bwd), (cudnn_fwd, cudnn_bwd),
+                    conv_ops(n, cin, cout, 3, h, w),
+                    4 * (x.numel() + wt.numel() + g.numel()))
+    del x, g
+    torch.cuda.empty_cache()
     return case
 
 
@@ -1012,13 +1121,17 @@ def phase_kernels():
     for route, block, layer in BLOCK_CONV_TIMED:
         cases.append(_block_conv_case(route, block, layer))
         torch.cuda.empty_cache()
+    for model, layer in SG2_CONV_TIMED:
+        cases.append(_sg2_conv_case(model, layer))
     emit({"phase": "kernels",
           "kernels": ["sagan_attention_fwd", "sagan_attention_bwd",
                       "fir_blur_fwd", "fir_blur_bwd", "mod_backward",
                       "block_conv_fwd", "block_conv_bwd",
                       "block_conv_splitk_reduce_fwd",
                       "block_conv_splitk_reduce_bwd",
-                      "block_conv_1x1_fwd", "block_conv_1x1_bwd"],
+                      "block_conv_1x1_fwd", "block_conv_1x1_bwd",
+                      "block_conv_sg2_3x3_fwd", "block_conv_sg2_3x3_bwd",
+                      "block_conv_sg2_up_fwd", "block_conv_sg2_up_bwd"],
           "cases": cases, "seconds": time.perf_counter() - t0})
     bad = [c for c in cases if not c["ok"]]
     if bad:
@@ -1055,8 +1168,8 @@ def phase_main_path(generations, final_steps):
     expect = {"fwd": generations * (GRAD_STEPS + 1) + final_steps,
               "bwd": generations * GRAD_STEPS + final_steps}
     # in bfloat16 every GenBlock convolution stays on F.conv2d (cuDNN)
-    expect_conv = {"fwd": 0, "bwd": 0,
-                   "plain": 4 * len(model.generator.layers) * expect["fwd"]}
+    expect_conv = dict(dict.fromkeys(BC.launch_counts(), 0),
+                       plain=4 * len(model.generator.layers) * expect["fwd"])
     steady = opt.gen_seconds[1:] or opt.gen_seconds
     gen_s = statistics.mean(steady)
     result = {
@@ -1466,8 +1579,8 @@ def phase_biggan_f32_path(generations, final_steps, cases, save_dir):
     # every GenBlock convolution on the block convolution kernel: four a
     # block a forward and a backward, none on F.conv2d
     blocks = 4 * len(model.generator.layers)
-    expect_conv = {"fwd": blocks * expect["fwd"], "bwd": blocks * expect["bwd"],
-                   "plain": 0}
+    expect_conv = dict(dict.fromkeys(BC.launch_counts(), 0),
+                       fwd=blocks * expect["fwd"], bwd=blocks * expect["bwd"])
     steady = opt.gen_seconds[1:] or opt.gen_seconds
     gen_s = statistics.mean(steady)
     # K1's float32 forward + backward at this shape, from the kernels phase,
@@ -2440,7 +2553,9 @@ def phase_cars_ng_path(work_dir):
     from pix2latent_tpu_torch.examples import common
     from pix2latent_tpu_torch.examples import \
         invert_stylegan2_cars_hybrid_ng as ex
-    from pix2latent_tpu_torch.models.stylegan2 import modulated_conv_inputs
+    from pix2latent_tpu_torch.models.stylegan2 import (modulated_conv_inputs,
+                                                       modulated_conv_shapes)
+    from pix2latent_tpu_torch.ops import block_conv as BC
     from pix2latent_tpu_torch.ops import fir_blur as FB
     from pix2latent_tpu_torch.ops import mod_backward as MB
     from pix2latent_tpu_torch.optimizers import HybridNevergradOptimizer
@@ -2465,6 +2580,7 @@ def phase_cars_ng_path(work_dir):
     torch.cuda.reset_peak_memory_stats()
     FB.reset_launch_counts()
     MB.reset_launch_counts()
+    BC.reset_launch_counts()
     t0 = time.perf_counter()
     with _RecordSyncs() as syncs:
         variables, outs, final = opt.optimize(
@@ -2473,6 +2589,7 @@ def phase_cars_ng_path(work_dir):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = _kernel_counts()
+    conv_counts = BC.launch_counts()
     peak = torch.cuda.max_memory_allocated()
 
     # each forward (an inner step, a tell, a final step) blurs once at each
@@ -2485,6 +2602,14 @@ def phase_cars_ng_path(work_dir):
     expect = {"fir_blur_fwd": levels * forwards,
               "fir_blur_bwd": levels * backwards,
               "mod_backward": convs * backwards}
+    # in float32 every modulated 3x3 and up-convolution runs the block
+    # convolution kernel, forward and input gradient; only the ToRGBs' 1x1s
+    # (levels + 1 a forward) stay on F.conv2d
+    shapes = modulated_conv_shapes(model.generator, SG2_POP)
+    same = sum(1 for _, up, _, _ in shapes if not up)
+    expect_conv = {"fwd": same * forwards, "bwd": same * backwards,
+                   "up_fwd": levels * forwards, "up_bwd": levels * backwards,
+                   "plain": (levels + 1) * forwards}
     tell_mins = opt.losses
     final_min = float(final[0][1]["loss"].min())
     gen_s = statistics.mean(opt.gen_seconds[1:] or opt.gen_seconds)
@@ -2512,6 +2637,8 @@ def phase_cars_ng_path(work_dir):
         "tell_min_per_generation": tell_mins, "final_min_loss": final_min,
         "blur_levels": levels, "modulated_convs": convs,
         "launches": counts, "expected_launches": expect,
+        "block_conv_calls": conv_counts,
+        "expected_block_conv_calls": expect_conv,
         "host_syncs": len(syncs.sites), "eigh_syncs": sum(
             1 for site, _, _ in syncs.sites if site == eigh_site),
         "phase_seconds": time.perf_counter() - t_start}
@@ -2525,10 +2652,11 @@ def phase_cars_ng_path(work_dir):
     assert all(math.isfinite(v) for v in tell_mins), tell_mins
     assert math.isfinite(final_min) and final_min < tell_mins[0], (
         f"no convergence: first generation {tell_mins[0]}, final {final_min}")
-    assert (levels, convs) == (7, 23)
+    assert (levels, convs, same) == (7, 23, 8)
     assert counts == expect, (counts, expect)
+    assert conv_counts == expect_conv, (conv_counts, expect_conv)
     assert eigh_site not in sites, sites
-    return counts
+    return dict(counts, block_conv=conv_counts)
 
 
 def phase_ffhq_entry_path(work_dir):
@@ -3119,7 +3247,8 @@ def _run_phases(args, t0, work):
             route = _block_conv_route(k, splits)
             per_pass[route, key] = per_pass.get((route, key), 0) + 1
     for key in ("fwd", "bwd"):
-        for case in (c for c in cases if c["kernel"] == "block_conv"):
+        for case in (c for c in cases if c["kernel"] == "block_conv"
+                     and "block" in c):
             name = ("block_conv" if case["route"] == "3x3"
                     else f"block_conv_{case['route']}")
             kernels.append({
@@ -3131,6 +3260,27 @@ def _run_phases(args, t0, work):
                 "of_48_a_pass": per_pass[case["route"], key],
                 "shape": case["x_shape"],
                 "weight": case["w_shape"], "splits": case[f"{key}_splits"],
+                "max_abs_err": case[f"{key}_max_abs_err"],
+                "ms": case[f"{key}_ms"], "plain_ms": case[f"plain_{key}_ms"],
+                "bound_ms": case[f"{key}_bound_ms"],
+                "bound_by": case[f"{key}_bound_by"],
+                "library_ms": case[f"library_{key}_ms"]})
+    for key in ("fwd", "bwd"):
+        for case in (c for c in cases if c["kernel"] == "block_conv"
+                     and c["route"].startswith("sg2")):
+            up = case["route"] == "sg2_up"
+            cars = case["model"] == "cars"
+            kernels.append({
+                "name": f"block_conv_{case['route']}_{key}", "route": "cuda",
+                "source": "pix2latent_tpu_torch/csrc/block_conv.cu",
+                "replaces": "none (cuDNN's convolutions of ModulatedConv)",
+                "launched_by": ("cars_ng_path (ModulatedConv, float32)" if cars
+                                else "none here (the ffhq1024-basincma cell)"),
+                "launches": (cars_ng_counts["block_conv"][
+                    ("up_" if up else "") + key] if cars else None),
+                "model": case["model"], "layer": case["layer"],
+                "shape": case["x_shape"], "weight": case["w_shape"],
+                "splits": case[f"{key}_splits"],
                 "max_abs_err": case[f"{key}_max_abs_err"],
                 "ms": case[f"{key}_ms"], "plain_ms": case[f"plain_{key}_ms"],
                 "bound_ms": case[f"{key}_bound_ms"],

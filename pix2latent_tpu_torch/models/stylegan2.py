@@ -10,8 +10,18 @@ FIR-upsampled skips; equalized-lr scales applied at run time.
 
 The modulated conv scales the input, ``conv(x * s)``, and multiplies the
 output by the demodulation factor of ``(W, s)``, as the JAX package does:
-one shared conv per layer, no per-sample weights. Two opt-in flags, both off
-by default as in the JAX package, put the hand-written kernels on the path:
+one shared conv per layer, no per-sample weights. That conv routes by what
+the call can observe (``ops/block_conv.modulated_conv2d``): in float32 on
+the card, its 3x3 convs and its up-convs (the stride-2 transposed conv, by
+four output phases) run the hand-written 3xTF32 implicit GEMM of
+``csrc/block_conv.cu``, forward and input gradient, on the weight packed
+once with its run-time scale; on the CPU, in bfloat16, on packed pairs (2
+groups) and for the 1x1 ToRGB, ``F.conv2d`` and ``F.conv_transpose2d`` run
+as they are. At config-f's shapes (22 rows) the kernel takes [22, 512, 4,
+4] to [22, 32, 1024, 1024], K = 288 to 4608: bound by operations up to 256
+px, by both at cars' 512 px 3x3 and by bytes at FFHQ's 1024 px 3x3 (5.9 GB
+against 424 GFLOP). Two opt-in flags, both off by default as in the JAX
+package, put the other hand-written kernels on the path:
 
 - ``fused_mod_bwd``: the modulation's backward runs ``ops/mod_backward.py``
   (K3) on every modulated conv;
@@ -50,6 +60,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from pix2latent_tpu_torch.models.base import checkpointed
+from pix2latent_tpu_torch.ops.block_conv import modulated_conv2d
 from pix2latent_tpu_torch.ops.mod_backward import modulate
 from pix2latent_tpu_torch.ops.upfirdn2d import Blur, Upsample, fused_leaky_relu
 from pix2latent_tpu_torch.utils.device import resolve_device
@@ -115,6 +126,25 @@ def modulated_conv_inputs(im_res: int, n: int, channel_multiplier: int = 2):
     return shapes
 
 
+def modulated_conv_shapes(generator, rows):
+    """Every 3x3 modulated conv of ``generator`` (a ``StyleGAN2Generator``,
+    on any device, ``meta`` too) at ``rows`` samples, read from its
+    layers' weights: ``(name, up, input shape [n, cin, h, w], weight shape
+    [cout, cin, 3, 3])`` in the forward's order; an ``up`` conv's output is
+    2h+1 x 2w+1 before its blur. These are the convs the block convolution
+    kernel takes in float32 (the ToRGBs' 1x1s are left out)."""
+    out = [("conv1", False, 4)]
+    for li in range(generator.log_size - 2):
+        res = 2 ** (li + 3)
+        out += [(f"convs_{2 * li}", True, res // 2),
+                (f"convs_{2 * li + 1}", False, res)]
+    shapes = []
+    for name, up, res in out:
+        w = tuple(getattr(generator, name).conv.weight.shape)
+        shapes.append((name, up, (rows, w[1], res, res), w))
+    return shapes
+
+
 def pixel_norm(x, eps=1e-8):
     return x * torch.rsqrt((x ** 2).mean(dim=-1, keepdim=True) + eps)
 
@@ -145,7 +175,9 @@ class ModulatedConv(nn.Module):
     """Weight-(de)modulated conv by input scaling. The weight is stored
     ``[out, in, k, k]`` with runtime scale ``1/sqrt(in*k*k)``. ``up=True``
     runs the stride-2 transposed conv of the weight (output 2H+1) and the
-    FIR blur with pad (1, 1) and gain 4, which brings it to 2H.
+    FIR blur with pad (1, 1) and gain 4, which brings it to 2H. The conv
+    itself is ``ops/block_conv.modulated_conv2d`` (the kernel in float32 on
+    the card).
 
     ``packed``: the layer may run on packed pairs (:func:`pack_pairs`); it
     does when ``forward`` is told so. It excludes ``fused_mod_bwd``, as in
@@ -181,13 +213,10 @@ class ModulatedConv(nn.Module):
         groups = 2 if packed else 1
         x_mod = modulate(x.to(self.dtype), pack_rows(s) if packed else s,
                          fused=self.fused_mod_bwd)
+        y = modulated_conv2d(x_mod, self.weight, self.scale, w, up=self.up,
+                             groups=groups)
         if self.up:
-            y = F.conv_transpose2d(x_mod, w.transpose(0, 1).repeat(
-                groups, 1, 1, 1), stride=2, groups=groups)
             y = self.blur(y)
-        else:
-            y = F.conv2d(x_mod, w.repeat(groups, 1, 1, 1),
-                         padding=self.kernel_size // 2, groups=groups)
         if self.demodulate:
             w2 = (w.float() ** 2).sum(dim=(2, 3)).t()        # [i, o]
             d = torch.rsqrt(s.float() ** 2 @ w2 + 1e-8)      # [n, o]

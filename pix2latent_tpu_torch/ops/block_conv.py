@@ -1,36 +1,60 @@
-"""BigGAN-deep's block convolutions: a hand-written float32-accurate
-implicit-GEMM kernel for the card, and its plain version.
+"""The port's float32 3x3 and 1x1 convolutions: a hand-written
+float32-accurate implicit-GEMM kernel for the card, and its plain version.
 
-:func:`block_conv2d` is the convolution every ``GenBlock`` of
-``models/biggan.py`` calls: its 1x1 convolutions (pad 0) and its 3x3 ones
-(pad 1), stride 1, NCHW. It routes by the input's device and type alone:
+Two models call it, each through its own function:
+
+* :func:`block_conv2d`, the convolution every ``GenBlock`` of
+  ``models/biggan.py`` calls: its 1x1 convolutions (pad 0) and its 3x3 ones
+  (pad 1), stride 1, with a bias;
+* :func:`modulated_conv2d`, the shared convolution of StyleGAN2's
+  ``ModulatedConv`` (``models/stylegan2.py``): its 3x3 convolutions (pad 1)
+  and its up-convolutions, the stride-2 transposed 3x3 convolution of the
+  unflipped weight (an h x w plane to 2h+1 x 2w+1), from [22, 512, 4, 4]
+  to [22, 32, 1024, 1024] at StyleGAN2 config-f's shapes (K = 288 to 4608).
+
+Both route by what the call can observe:
 
 * a float32 CUDA input runs the kernel (``csrc/block_conv.cu``), forward
   and input gradient, with its products in 3xTF32 on the tensor cores and
   f32 sums; a convolution there that the kernel cannot take (another size
-  or padding, a weight or bias of another type or card) raises;
-* CPU tensors and other types (bfloat16) run ``F.conv2d`` as it was.
+  or padding, a weight or bias of another type or card) raises, and never
+  reaches cuDNN;
+* CPU tensors and other types (bfloat16) run ``F.conv2d`` or
+  ``F.conv_transpose2d`` as they were, and so do StyleGAN2's 2-group
+  convolutions on packed pairs and its 1x1 ToRGB (3 outputs: 3 of the
+  kernel's 64 tile rows).
 
 The kernel replaces no TPU kernel (the JAX package leaves these
-convolutions to XLA); it replaces cuDNN's FFT convolutions, which its
-heuristics pick for BigGAN's strict-float32 3x3 convolutions. Its source
-note gives its bound and design.
+convolutions to XLA); it replaces cuDNN's strict-float32 convolutions: FFT
+algorithms at BigGAN's 3x3s, implicit GEMMs at 30-34 TFLOP/s and its
+backward-data engine at StyleGAN2's. Its source note gives its bound and
+design.
 
-The input gradient of a convolution is a convolution of the output's
-gradient: for a 3x3 one with the weight flipped and its in and out axes
-swapped, for a 1x1 one with the weight transposed. So one kernel does both,
-on a weight packed for it: ``[2, cout, taps, cin_pad]``, the tf32 hi and lo
-parts of each value, taps outermost, channels padded to the kernel's K
-tile. The weights are frozen, so both packs are built once per weight and
-kept beside it (rebuilt when the weight changes in place). No weight or
-bias gradient is computed: a weight or bias that asks for one raises.
+The kernel has three routes, which the caller names (``SAME``, ``UP``,
+``UP_GRAD``): a convolution of stride 1 ("same" padding); the up-convolution
+as four stride-1 GEMMs, one per output phase (2x2, 2x1, 1x2 and 1x1 taps of
+the weight), whose outputs interleave into y; and its input gradient, a
+3x3 gather of stride 2 without padding. The input gradient of a stride-1
+convolution is a convolution of the output's gradient: for a 3x3 one with
+the weight flipped and its in and out axes swapped, for a 1x1 one with the
+weight transposed. So each route's weight is packed for it: ``[2, cout,
+taps, cin_pad]``, the tf32 hi and lo parts of each value, taps outermost
+(the up route's in phase order, ``UP_TAPS``), channels padded to the
+kernel's K tile. The weights are frozen, so the packs are built once per
+weight and kept beside it (rebuilt when the weight changes in place): a
+BigGAN weight's by :func:`packed_weights`, a StyleGAN2 weight's, with its
+run-time scale folded in before the split, by :func:`scaled_packs`. No
+weight or bias gradient is computed: a weight or bias that asks for one
+raises.
 
-The kernel picks its split of K from the GEMM's shape itself
-(``plan_splits`` in the source); :func:`kernel_splits` asks it, to size the
-workspace. :func:`packed_conv_reference` is the kernel's GEMM in plain
-PyTorch, on a packed weight, so the CPU tests hold the packing and the K
-order. ``launch_counts()`` counts calls (not CUDA launches): forwards and
-input gradients through the kernel, and calls that went to ``F.conv2d``.
+The kernel picks its split of K and its tile from the route and the GEMM's
+shape itself (``plan_splits`` and ``tile_of`` in the source);
+:func:`kernel_splits` asks it for the split, to size the workspace. :func:`packed_conv_reference` is the kernel's GEMM in
+plain PyTorch, on a packed weight and each route, so the CPU tests hold the
+packing, the phases and the K order. ``launch_counts()`` counts calls (not
+CUDA launches): ``fwd`` and ``bwd`` through the kernel's stride-1 route,
+``up_fwd`` and ``up_bwd`` through its up-convolution routes, and ``plain``
+calls that went to ``F.conv2d`` or ``F.conv_transpose2d``.
 """
 
 from __future__ import annotations
@@ -44,8 +68,15 @@ from torch.utils.weak import WeakIdKeyDictionary
 
 SOURCE = "block_conv.cu"
 BK = 32    # the packed layout's channel block: the kernel's K tile (kBK)
+SAME, UP, UP_GRAD = 0, 1, 2     # the kernel's routes (its enum Route)
+# The up route's phases (a, b) in order, each with its taps (ky, kx) in the
+# order of its GEMM's K: output pixel (2m + a, 2q + b) takes the taps ky = a
+# + 2u, kx = b + 2v at x[m - u, q - v], listed from the largest u and v.
+UP_PHASES = ((0, 0), (0, 1), (1, 0), (1, 1))
+UP_TAPS = tuple((a + 2 * u, b + 2 * v) for a, b in UP_PHASES
+                for u in range(1 - a, -1, -1) for v in range(1 - b, -1, -1))
 
-_COUNTS = {"fwd": 0, "bwd": 0, "plain": 0}
+_COUNTS = {"fwd": 0, "bwd": 0, "up_fwd": 0, "up_bwd": 0, "plain": 0}
 _PACKS = WeakIdKeyDictionary()
 
 
@@ -78,32 +109,96 @@ def pack_grad_weight(weight):
     return pack_weight(weight.detach().flip(2, 3).transpose(0, 1))
 
 
-def packed_weights(weight):
-    """``(forward pack, input-gradient pack)`` of ``weight``, built once and
-    kept while the weight lives and is not changed in place."""
-    key = (weight.data_ptr(), weight._version, tuple(weight.shape),
-           weight.device)
+def pack_up_weight(weight):
+    """The kernel's A for the up-convolution by the 3x3 ``weight [cout,
+    cin, 3, 3]`` (``F.conv_transpose2d(x, weight.transpose(0, 1),
+    stride=2)``): its taps in ``UP_TAPS`` order, packed; the values are
+    :func:`pack_weight`'s, reordered."""
+    cout, cin = weight.shape[:2]
+    order = [3 * ky + kx for ky, kx in UP_TAPS]
+    return pack_weight(weight.detach().flatten(2)[:, :, order].reshape(
+        cout, cin, 3, 3))
+
+
+def pack_up_grad_weight(weight):
+    """The kernel's A for the up-convolution's input gradient: the weight
+    with its in and out axes swapped, not flipped, packed."""
+    return pack_weight(weight.detach().transpose(0, 1))
+
+
+def _pack_key(weight, *extra):
+    return (weight.data_ptr(), weight._version, tuple(weight.shape),
+            weight.device) + extra
+
+
+def _kept(weight, key, build):
     found = _PACKS.get(weight)
     if found is None or found[0] != key:
         with torch.no_grad():
-            found = (key, (pack_weight(weight), pack_grad_weight(weight)))
+            found = (key, build())
         _PACKS[weight] = found
     return found[1]
 
 
-def packed_conv_reference(x, packed, bias, ksize):
-    """Plain PyTorch version of the kernel's GEMM: ``x [n, cin, h, w]`` by
+def packed_weights(weight):
+    """``(forward pack, input-gradient pack)`` of ``weight``, built once and
+    kept while the weight lives and is not changed in place."""
+    return _kept(weight, _pack_key(weight),
+                 lambda: (pack_weight(weight), pack_grad_weight(weight)))
+
+
+def scaled_packs(weight, scale, up=False):
+    """``(forward pack, input-gradient pack)`` of ``weight * scale`` for the
+    stride-1 route, or with ``up`` for the up-convolution's: built once from
+    the product in float32 and kept with the parameter ``weight`` (keyed on
+    it, its ``_version``, ``scale`` and ``up``), so a call with the same
+    frozen weight packs nothing."""
+    def build():
+        w = weight.detach().float() * scale
+        if up:
+            return pack_up_weight(w), pack_up_grad_weight(w)
+        return pack_weight(w), pack_grad_weight(w)
+    return _kept(weight, _pack_key(weight, float(scale), bool(up)), build)
+
+
+def _gemm(x, a, ksize, padding=0, stride=1):
+    """``a [cout, taps, cin]`` by the unfolded ``x``, K tap-major."""
+    n, cin = x.shape[:2]
+    cout, taps, _ = a.shape
+    cols = F.unfold(x, ksize, padding=padding, stride=stride)
+    cols = cols.view(n, cin, taps, -1).transpose(1, 2).reshape(n, taps * cin, -1)
+    return torch.matmul(a.reshape(cout, taps * cin), cols)
+
+
+def packed_conv_reference(x, packed, bias, ksize, route=SAME):
+    """Plain PyTorch version of the kernel's GEMMs: ``x [n, cin, h, w]`` by
     the packed ``[2, cout, taps, cin_pad]`` (hi + lo), K ordered tap-major
-    as the kernel's, "same" padding, plus ``bias``; in x's type."""
+    as the kernel's, plus ``bias`` (``SAME`` only); in x's type. ``SAME``:
+    "same" padding, y ``[n, cout, h, w]``; ``UP``: the four phase GEMMs,
+    interleaved into y ``[n, cout, 2h+1, 2w+1]``; ``UP_GRAD``: x ``[n, cin,
+    2h+1, 2w+1]`` gathered at stride 2, y ``[n, cout, h, w]``."""
     n, cin, h, w = x.shape
-    _, cout, taps, cin_pad = packed.shape
     a = (packed[0] + packed[1]).to(x.dtype)[:, :, :cin]     # [cout, taps, cin]
-    cols = F.unfold(x, ksize, padding=ksize // 2)           # [n, cin*taps, hw]
-    cols = cols.view(n, cin, taps, h * w).transpose(1, 2).reshape(
-        n, taps * cin, h * w)
-    y = torch.matmul(a.reshape(cout, taps * cin), cols).view(n, cout, h, w)
-    if bias is not None:
-        y = y + bias.to(x.dtype)[None, :, None, None]
+    cout = a.shape[0]
+    if route == SAME:
+        y = _gemm(x, a, ksize, padding=ksize // 2).view(n, cout, h, w)
+        if bias is not None:
+            y = y + bias.to(x.dtype)[None, :, None, None]
+        return y
+    if bias is not None or ksize != 3:
+        raise ValueError("the up-convolution routes take a 3x3 weight and "
+                         "no bias")
+    if route == UP_GRAD:
+        return _gemm(x, a, 3, stride=2).view(n, cout, (h - 1) // 2,
+                                             (w - 1) // 2)
+    y = x.new_empty((n, cout, 2 * h + 1, 2 * w + 1))
+    tap = 0
+    for pa, pb in UP_PHASES:
+        kh, kw = 2 - pa, 2 - pb
+        part = _gemm(x, a[:, tap:tap + kh * kw], (kh, kw),
+                     padding=(kh - 1, kw - 1))
+        y[:, :, pa::2, pb::2] = part.view(n, cout, h + 1 - pa, w + 1 - pb)
+        tap += kh * kw
     return y
 
 
@@ -116,28 +211,32 @@ def _lib():
         from pix2latent_tpu_torch.utils.cuda_build import load
         lib = load(SOURCE)
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.block_conv.argtypes = [p] * 5 + [i] * 8 + [p]
+        lib.block_conv.argtypes = [p] * 5 + [i] * 9 + [p]
         lib.block_conv.restype = i
-        lib.block_conv_splits.argtypes = [i] * 6
+        lib.block_conv_splits.argtypes = [i] * 7
         lib.block_conv_splits.restype = i
         _LIB = lib
     return _LIB
 
 
 @functools.lru_cache(maxsize=None)
-def kernel_splits(n, cin_pad, h, w, cout, ksize):
-    """The splits of K the kernel runs for ``x [n, cin, h, w]`` by a weight
-    packed to ``[2, cout, ksize**2, cin_pad]`` (1: none; 0: a shape it
-    refuses), as the source's plan picks them from the shape."""
-    return _lib().block_conv_splits(n, cin_pad, h, w, cout, ksize)
+def kernel_splits(n, cin_pad, h, w, cout, ksize, route=SAME):
+    """The splits of K the kernel runs on ``route`` for ``x [n, cin, h, w]``
+    (``UP_GRAD``: the gradient of an h x w plane's up-convolution) by a
+    weight packed to ``[2, cout, ksize**2, cin_pad]`` (1: none; 0: a shape
+    it refuses), as the source's plan picks them from the shape."""
+    return _lib().block_conv_splits(n, cin_pad, h, w, cout, ksize, route)
 
 
-def _launch(x, packed, bias, ksize):
+def _launch(x, packed, bias, ksize, route=SAME):
     """The kernel on checked inputs, on x's card and its current stream."""
     n, cin, h, w = x.shape
     _, cout, _, cin_pad = packed.shape
-    splits = kernel_splits(n, cin_pad, h, w, cout, ksize)
-    y = torch.empty((n, cout, h, w), dtype=x.dtype, device=x.device)
+    if route == UP_GRAD:
+        h, w = (h - 1) // 2, (w - 1) // 2
+    out = (2 * h + 1, 2 * w + 1) if route == UP else (h, w)
+    splits = kernel_splits(n, cin_pad, h, w, cout, ksize, route)
+    y = torch.empty((n, cout) + out, dtype=x.dtype, device=x.device)
     ws = (torch.empty(splits * y.numel(), dtype=x.dtype, device=x.device)
           if splits > 1 else None)
     dev = x.get_device()
@@ -145,7 +244,7 @@ def _launch(x, packed, bias, ksize):
         x.data_ptr(), packed.data_ptr(),
         bias.data_ptr() if bias is not None else None, y.data_ptr(),
         ws.data_ptr() if ws is not None else None, n, cin, cin_pad, h, w,
-        cout, ksize, dev, torch._C._cuda_getCurrentRawStream(dev))
+        cout, ksize, route, dev, torch._C._cuda_getCurrentRawStream(dev))
     if err != 0:
         raise RuntimeError(f"block_conv kernel launch failed: cudaError {err}")
     return y
@@ -159,9 +258,9 @@ def _check_bias(bias, cout, device):
                          f"[{cout}] on {device}")
 
 
-def kernel_conv(x, packed, bias, ksize):
-    """One call of the kernel: the convolution of ``x`` by the packed weight
-    (and ``bias``), as :func:`packed_conv_reference`."""
+def kernel_conv(x, packed, bias, ksize, route=SAME):
+    """One call of the kernel on ``route``: the convolution of ``x`` by the
+    packed weight (and ``bias``), as :func:`packed_conv_reference`."""
     if x.device.type != "cuda" or x.dtype != torch.float32:
         raise ValueError("block_conv: the kernel takes a float32 CUDA tensor")
     if x.dim() != 4 or not x.is_contiguous():
@@ -176,8 +275,15 @@ def kernel_conv(x, packed, bias, ksize):
             cin_pad - BK < cin <= cin_pad) or cin_pad % BK:
         raise ValueError(f"block_conv: x {tuple(x.shape)} does not fit the "
                          f"packed weight {tuple(packed.shape)} (k {ksize})")
+    if route != SAME and (ksize != 3 or bias is not None):
+        raise ValueError("block_conv: the up-convolution routes take a 3x3 "
+                         "weight and no bias")
+    if route == UP_GRAD and (x.shape[2] % 2 == 0 or x.shape[3] % 2 == 0
+                             or min(x.shape[2:]) < 3):
+        raise ValueError(f"block_conv: {tuple(x.shape)} is no up-"
+                         "convolution's output (2h+1 x 2w+1)")
     _check_bias(bias, cout, x.device)
-    return _launch(x, packed, bias, ksize)
+    return _launch(x, packed, bias, ksize, route)
 
 
 def check_kernel_args(x, weight, bias, padding):
@@ -201,21 +307,34 @@ def check_kernel_args(x, weight, bias, padding):
     _check_bias(bias, cout, x.device)
 
 
+def _refuse_gradients(*params):
+    if torch.is_grad_enabled() and any(
+            p is not None and p.requires_grad for p in params):
+        raise RuntimeError(
+            "block_conv computes no weight or bias gradient: freeze "
+            "the layer (requires_grad_(False)) or run it in bfloat16 or "
+            "on the CPU, where F.conv2d takes it")
+
+
 class BlockConvFunction(torch.autograd.Function):
-    """The kernel's convolution and its input gradient; the weight and the
-    bias take no gradient (:func:`block_conv2d` refuses one that asks)."""
+    """The kernel's convolution (``up``: the up-convolution) and its input
+    gradient, on the weight's ``packs`` (forward, input gradient); the
+    weight and the bias take no gradient (the callers refuse one that
+    asks)."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias):
-        fwd, ctx.bwd = packed_weights(weight)
-        ctx.ksize = weight.shape[-1]
-        _COUNTS["fwd"] += 1
-        return _launch(x.contiguous(), fwd, bias, ctx.ksize)
+    def forward(ctx, x, packs, bias, ksize, up):
+        fwd, ctx.bwd = packs
+        ctx.ksize, ctx.up = ksize, up
+        _COUNTS["up_fwd" if up else "fwd"] += 1
+        return _launch(x.contiguous(), fwd, bias, ksize, UP if up else SAME)
 
     @staticmethod
     def backward(ctx, g):
-        _COUNTS["bwd"] += 1
-        return _launch(g.contiguous(), ctx.bwd, None, ctx.ksize), None, None
+        _COUNTS["up_bwd" if ctx.up else "bwd"] += 1
+        dx = _launch(g.contiguous(), ctx.bwd, None, ctx.ksize,
+                     UP_GRAD if ctx.up else SAME)
+        return dx, None, None, None, None
 
 
 def block_conv2d(x, weight, bias=None, padding=0):
@@ -229,13 +348,38 @@ def block_conv2d(x, weight, bias=None, padding=0):
         b = bias.to(x.dtype) if bias is not None else None
         return F.conv2d(x, weight.to(x.dtype), b, padding=padding)
     check_kernel_args(x, weight, bias, padding)
-    if torch.is_grad_enabled() and (
-            weight.requires_grad or (bias is not None and bias.requires_grad)):
-        raise RuntimeError(
-            "block_conv2d computes no weight or bias gradient: freeze "
-            "the layer (requires_grad_(False)) or run it in bfloat16 or "
-            "on the CPU, where F.conv2d takes it")
-    return BlockConvFunction.apply(x, weight, bias)
+    _refuse_gradients(weight, bias)
+    return BlockConvFunction.apply(x, packed_weights(weight), bias,
+                                   weight.shape[-1], False)
+
+
+def modulated_conv2d(x, weight, scale, w, up=False, groups=1):
+    """StyleGAN2's shared convolution of the modulated ``x`` by ``w``, which
+    is ``weight * scale`` in x's type (the caller demodulates by it too):
+    ``F.conv2d(x, w, padding=k // 2)``, or with ``up`` the up-convolution
+    ``F.conv_transpose2d(x, w.transpose(0, 1), stride=2)``; with ``groups``
+    2, on packed pairs, each group by ``w``.
+
+    A float32 CUDA ``x`` with ``groups`` 1 and a 3x3 ``w`` runs the kernel,
+    forward and input gradient, on the packs of ``weight * scale`` kept with
+    the parameter (:func:`scaled_packs`), and raises where the kernel cannot
+    take the call (:func:`check_kernel_args`) or ``weight`` asks for a
+    gradient. Every other call (CPU, bfloat16, 2 groups, the 1x1 ToRGB)
+    runs ``F.conv2d`` or ``F.conv_transpose2d`` as given, counted as
+    ``plain``."""
+    k = w.shape[-1]
+    if (x.device.type == "cuda" and x.dtype == torch.float32 and groups == 1
+            and k == 3):
+        check_kernel_args(x, w, None, 1)
+        _refuse_gradients(weight)
+        return BlockConvFunction.apply(x, scaled_packs(weight, scale, up),
+                                       None, 3, up)
+    _COUNTS["plain"] += 1
+    if up:
+        return F.conv_transpose2d(x, w.transpose(0, 1).repeat(groups, 1, 1, 1),
+                                  stride=2, groups=groups)
+    return F.conv2d(x, w.repeat(groups, 1, 1, 1), padding=k // 2,
+                    groups=groups)
 
 
 def reset_launch_counts():
@@ -244,6 +388,7 @@ def reset_launch_counts():
 
 
 def launch_counts() -> dict:
-    """Calls since the last reset: ``fwd`` and ``bwd`` through the kernel,
-    ``plain`` to ``F.conv2d``."""
+    """Calls since the last reset: ``fwd`` and ``bwd`` through the kernel's
+    stride-1 route, ``up_fwd`` and ``up_bwd`` through its up-convolution
+    routes, ``plain`` to ``F.conv2d`` or ``F.conv_transpose2d``."""
     return dict(_COUNTS)

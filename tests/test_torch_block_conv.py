@@ -1,21 +1,27 @@
-"""BigGAN-deep's block convolutions (``ops/block_conv.py``).
+"""The port's block convolutions (``ops/block_conv.py``): BigGAN-deep's
+``GenBlock`` convolutions and StyleGAN2's modulated 3x3 convolutions and
+up-convolutions.
 
 On the CPU: the packed weights (tf32 hi + lo, taps outermost, the input
 gradient's weight flipped and transposed) through the kernel's GEMM in
-plain PyTorch against ``F.conv2d`` in float64; the weight packs kept and
-rebuilt; the arguments the kernel refuses; CPU and bfloat16 inputs on
-``F.conv2d``, bit for bit, with the kernel's counters at 0; ``GenBlock``
-unchanged through ``block_conv2d``; and the GenBlock shapes read from the
-model against those a forward runs.
+plain PyTorch against ``F.conv2d`` in float64; the up-convolution's four
+phase GEMMs against ``F.conv_transpose2d`` and its stride-2 gather against
+autograd's input gradient, in float64; the weight packs, plain and scaled,
+kept and rebuilt; the arguments the kernel refuses; CPU and bfloat16 inputs
+on ``F.conv2d``, bit for bit, with the kernel's counters at 0; ``GenBlock``
+and ``ModulatedConv`` (float32, bfloat16, packed pairs) unchanged on the
+CPU; and the shapes read from the models against those a forward runs.
 
 On the card (``cuda``-marked, so skipped here): the kernel's forward and
 input gradient against float64 ``F.conv2d`` at every ``GenBlock`` shape at
-18 rows, 5 (a four-card rank's share) and 7, with and without bias, two
-calls bitwise equal, the kernel's split of K at every GenBlock shape and on
-ragged shapes (uneven splits too), a weight or bias that asks for a
-gradient refused, a float32 convolution the kernel cannot take refused
-(never sent to ``F.conv2d``), and the counts of one BigGAN-deep step: 4
-forward and 4 input-gradient calls a block, none on ``F.conv2d``.
+18 rows, 5 (a four-card rank's share) and 7, with and without bias, and at
+every StyleGAN2 cars-512 and FFHQ-1024 modulated 3x3 and up-convolution
+shape at 22 rows; two calls bitwise equal, the kernel's split of K at every
+GenBlock shape and on ragged shapes (uneven splits too), a weight or bias
+that asks for a gradient refused, a float32 convolution the kernel cannot
+take refused (never sent to ``F.conv2d``), and the counts of one BigGAN-deep
+step (4 forward and 4 input-gradient calls a block), one cars step and one
+FFHQ step with its recompute, none of their 3x3s on ``F.conv2d``.
 
 The file imports neither JAX nor the JAX package:
 
@@ -27,12 +33,15 @@ import torch
 import torch.nn.functional as F
 
 from pix2latent_tpu_torch.models import biggan as B
+from pix2latent_tpu_torch.models import stylegan2 as S
 from pix2latent_tpu_torch.ops import block_conv as BC
 
 VERSION = "biggan-deep-256"
 with torch.device("meta"):
     GENERATOR = B.BigGANDeepGenerator(VERSION)
 SHAPES = B.genblock_conv_shapes(GENERATOR, rows=18)
+with torch.device("meta"):
+    SG2_SHAPES = S.modulated_conv_shapes(S.StyleGAN2Generator(1024), rows=22)
 # (atol, rtol) on outputs of unit scale: K1's float32 tolerances
 TOL = (1e-5, 2e-4)
 
@@ -59,6 +68,11 @@ def _conv_and_input_grad(x, w, b, g):
                  padding=k // 2)
     y.backward(g.double())
     return y.detach(), xd.grad
+
+
+def _counts(**calls):
+    """``launch_counts()`` with ``calls`` and every other count 0."""
+    return dict(dict.fromkeys(BC.launch_counts(), 0), **calls)
 
 
 @pytest.fixture
@@ -158,7 +172,7 @@ def test_cpu_and_bf16_reach_conv2d(counts, dtype, k):
     got = BC.block_conv2d(x, w, b, padding=k // 2)
     want = F.conv2d(x, w.to(dtype), b.to(dtype), padding=k // 2)
     assert got.dtype == dtype and torch.equal(got, want)
-    assert counts() == {"fwd": 0, "bwd": 0, "plain": 1}
+    assert counts() == _counts(plain=1)
 
 
 def test_cpu_path_keeps_weight_gradients(counts):
@@ -207,7 +221,7 @@ def test_genblock_unchanged_on_cpu(counts, up, dtype):
     cond = torch.randn(3, B.Z_DIM + B.EMBED_DIM).to(dtype)
     got = block(x, 0.4, cond)
     assert torch.equal(got, _genblock_by_conv2d(block, x, 0.4, cond))
-    assert counts() == {"fwd": 0, "bwd": 0, "plain": 4}
+    assert counts() == _counts(plain=4)
 
 
 def test_biggan_forward_on_cpu_counts_plain_calls(counts):
@@ -215,7 +229,7 @@ def test_biggan_forward_on_cpu_counts_plain_calls(counts):
     z = torch.zeros(2, B.Z_DIM)
     model(z, model.get_class_embedding(1).expand(2, -1), 0.5)
     blocks = len(B.BIGGAN_CONFIGS["biggan-deep-128"]["layers"])
-    assert counts() == {"fwd": 0, "bwd": 0, "plain": 4 * blocks}
+    assert counts() == _counts(plain=4 * blocks)
 
 
 def test_genblock_conv_shapes_cover_the_model(monkeypatch):
@@ -236,6 +250,162 @@ def test_genblock_conv_shapes_cover_the_model(monkeypatch):
     macs = sum(n * cout * cin * k * k * h * w for _, _, (n, cin, h, w),
                (cout, _, k, _) in SHAPES) / 18
     assert macs == pytest.approx(26.47e9, rel=1e-3)
+
+
+def _up_case(x_shape, cout, dtype=torch.float64, device="cpu", seed=0):
+    """An up-convolution's input, 3x3 weight and output gradient."""
+    n, cin, h, w = x_shape
+    x, wt, _, _ = _conv_case(x_shape, (cout, cin, 3, 3), dtype=dtype,
+                             device=device, bias=False, seed=seed)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed + 1)
+    g = torch.randn((n, cout, 2 * h + 1, 2 * w + 1), generator=gen,
+                    device=device, dtype=dtype)
+    return x, wt, g
+
+
+def _transposed_conv_and_input_grad(x, w, g):
+    """float64 ``F.conv_transpose2d`` by the unflipped ``w`` at stride 2 and
+    the gradient of <it, g> to its input."""
+    xd = x.double().requires_grad_(True)
+    y = F.conv_transpose2d(xd, w.double().transpose(0, 1), stride=2)
+    y.backward(g.double())
+    return y.detach(), xd.grad
+
+
+def test_up_taps_are_the_phases():
+    assert sorted(BC.UP_TAPS) == [(ky, kx) for ky in range(3)
+                                  for kx in range(3)]
+    tap = 0
+    for a, b in BC.UP_PHASES:
+        taps = BC.UP_TAPS[tap:tap + (2 - a) * (2 - b)]
+        assert all(ky % 2 == a and kx % 2 == b for ky, kx in taps)
+        tap += len(taps)
+    assert tap == 9
+
+
+@pytest.mark.parametrize("x_shape,cout", [
+    ((2, 40, 5, 7), 24),      # channels past one K tile, a ragged plane
+    ((1, 33, 1, 1), 17),      # a 1x1 plane: every phase but (0, 0) one pixel
+    ((3, 64, 4, 4), 96),
+    ((2, 8, 3, 2), 5),
+])
+def test_packed_up_gemm_is_the_transposed_conv_and_its_input_grad(
+        x_shape, cout):
+    x, w, g = _up_case(x_shape, cout)
+    y_ref, dx_ref = _transposed_conv_and_input_grad(x, w, g)
+    fwd, bwd = BC.pack_up_weight(w), BC.pack_up_grad_weight(w)
+    assert fwd.shape == (2, cout, 9, -(-x_shape[1] // BC.BK) * BC.BK)
+    assert bwd.shape == (2, x_shape[1], 9, -(-cout // BC.BK) * BC.BK)
+    y = BC.packed_conv_reference(x, fwd, None, 3, BC.UP)
+    dx = BC.packed_conv_reference(g, bwd, None, 3, BC.UP_GRAD)
+    assert y.shape == y_ref.shape and dx.shape == dx_ref.shape
+    assert (y - y_ref).abs().max() <= 2.0 ** -21 * (
+        x.abs().amax() * w.abs().sum((1, 2, 3)).amax()) + 1e-12
+    assert (dx - dx_ref).abs().max() <= 2.0 ** -21 * (
+        g.abs().amax() * w.abs().sum((0, 2, 3)).amax()) + 1e-12
+
+
+@pytest.mark.parametrize("up", [False, True])
+def test_scaled_packs_are_kept_and_rebuilt(up):
+    weight = torch.nn.Parameter(torch.randn(8, 6, 3, 3), requires_grad=False)
+    scale = 1.0 / (6 * 9) ** 0.5
+    fwd, bwd = BC.scaled_packs(weight, scale, up)
+    again = BC.scaled_packs(weight, scale, up)
+    assert again[0] is fwd and again[1] is bwd
+    # bit for bit the packs of the product ModulatedConv makes, the up
+    # route's taps in phase order and its input gradient's weight unflipped
+    w = weight * scale
+    if up:
+        order = [3 * ky + kx for ky, kx in BC.UP_TAPS]
+        want = (BC.pack_weight(w)[:, :, order],
+                BC.pack_weight(w.transpose(0, 1)))
+    else:
+        want = (BC.pack_weight(w), BC.pack_weight(w.flip(2, 3).transpose(0, 1)))
+    assert torch.equal(fwd, want[0]) and torch.equal(bwd, want[1])
+    with torch.no_grad():
+        weight.mul_(2.0)
+    fwd2, _ = BC.scaled_packs(weight, scale, up)
+    assert fwd2 is not fwd
+    pack = BC.pack_up_weight if up else BC.pack_weight
+    assert torch.equal(fwd2, pack(weight * scale))
+
+
+def _modconv_by_f_conv(conv, x, style, packed):
+    """ModulatedConv.forward with its convolution as the F.conv call the
+    layer made before the kernel took it."""
+    s = conv.modulation(style)
+    w = (conv.weight * conv.scale).to(conv.dtype)
+    groups = 2 if packed else 1
+    x_mod = x.to(conv.dtype) * (S.pack_rows(s) if packed else s)[:, :, None,
+                                                                 None]
+    if conv.up:
+        y = conv.blur(F.conv_transpose2d(
+            x_mod, w.transpose(0, 1).repeat(groups, 1, 1, 1), stride=2,
+            groups=groups))
+    else:
+        y = F.conv2d(x_mod, w.repeat(groups, 1, 1, 1),
+                     padding=conv.kernel_size // 2, groups=groups)
+    if conv.demodulate:
+        d = torch.rsqrt(s.float() ** 2 @ (w.float() ** 2).sum(dim=(2, 3)).t()
+                        + 1e-8)
+        y = y * (S.pack_rows(d) if packed else d)[:, :, None, None].to(y.dtype)
+    return y
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("up,k", [(False, 3), (True, 3), (False, 1)])
+def test_modulated_conv_unchanged_on_cpu(counts, dtype, packed, up, k):
+    torch.manual_seed(0)
+    conv = S.ModulatedConv(8, 6, k, up=up, dtype=dtype, packed=packed,
+                           demodulate=k == 3)
+    with torch.no_grad():
+        for p in conv.parameters():
+            p.normal_()
+    conv.requires_grad_(False)
+    rows = 4
+    x = torch.randn(rows // 2 if packed else rows, 16 if packed else 8, 5, 5)
+    style = torch.randn(rows, S.STYLE_DIM)
+    got = conv(x, style, packed)
+    assert got.dtype == dtype
+    assert torch.equal(got, _modconv_by_f_conv(conv, x, style, packed))
+    assert counts() == _counts(plain=1)
+
+
+def test_stylegan2_forward_on_cpu_counts_plain_calls(counts):
+    generator = S.StyleGAN2Generator(32, channel_multiplier=1)
+    generator(torch.zeros(2, S.STYLE_DIM))
+    convs = len(S.modulated_conv_shapes(generator, 2))
+    assert convs == 7
+    assert counts() == _counts(plain=convs + 4)      # and the 4 ToRGBs
+
+
+def test_modulated_conv_shapes_cover_the_model(monkeypatch):
+    seen = []
+
+    def record(x, weight, scale, w, up=False, groups=1):
+        if w.shape[-1] == 3:
+            seen.append((up, tuple(x.shape), tuple(w.shape)))
+        if up:
+            return F.conv_transpose2d(x, w.transpose(0, 1), stride=2)
+        return F.conv2d(x, w, padding=w.shape[-1] // 2)
+
+    monkeypatch.setattr(S, "modulated_conv2d", record)
+    generator = S.StyleGAN2Generator(32, channel_multiplier=1)
+    with torch.no_grad():
+        generator(torch.zeros(3, S.STYLE_DIM))
+    shapes = S.modulated_conv_shapes(generator, rows=3)
+    assert seen == [(up, x, w) for _, up, x, w in shapes]
+    assert len(SG2_SHAPES) == 17
+    macs = {512: 0, 1024: 0}
+    for i, (_, up, (n, cin, h, w), (cout, _, k, _)) in enumerate(SG2_SHAPES):
+        for res in macs:
+            if i < 2 * (res.bit_length() - 3) + 1:
+                macs[res] += cout * cin * k * k * h * w
+    # cars-512's 15 convs (conv1 and 7 levels), then FFHQ's two at 1024 px
+    assert macs[512] == pytest.approx(59.57e9, rel=1e-3)
+    assert macs[1024] - macs[512] == pytest.approx(14.50e9, rel=1e-3)
 
 
 # ----------------------------------------------------------------- card --
@@ -277,7 +447,7 @@ def test_kernel_matches_conv2d_at_genblock_shapes(cuda, counts, rows, index):
     blk, layer, x_shape, w_shape = SHAPES[index]
     x_shape = (rows,) + tuple(x_shape[1:])
     _kernel_matches(x_shape, w_shape, cuda, bias=index % 2 == 0)
-    assert counts() == {"fwd": 1, "bwd": 1, "plain": 0}
+    assert counts() == _counts(fwd=1, bwd=1)
 
 
 @pytest.mark.cuda
@@ -348,11 +518,11 @@ def test_weight_that_asks_for_a_gradient_raises(cuda, counts):
         BC.block_conv2d(x, w.clone().requires_grad_(True), b, padding=1)
     with pytest.raises(RuntimeError, match="no weight or bias gradient"):
         BC.block_conv2d(x, w, b.clone().requires_grad_(True), padding=1)
-    assert counts() == {"fwd": 0, "bwd": 0, "plain": 0}
+    assert counts() == _counts()
     with torch.no_grad():                  # nothing asks for a gradient
         y = BC.block_conv2d(x, w.clone().requires_grad_(True), b, padding=1)
     assert torch.equal(y, BC.block_conv2d(x, w, b, padding=1))
-    assert counts() == {"fwd": 2, "bwd": 0, "plain": 0}
+    assert counts() == _counts(fwd=2)
 
 
 @pytest.mark.cuda
@@ -363,7 +533,7 @@ def test_bf16_on_the_card_reaches_conv2d(cuda, counts, k):
     got = BC.block_conv2d(x, w, b, padding=k // 2)
     assert torch.equal(got, F.conv2d(x, w.bfloat16(), b.bfloat16(),
                                      padding=k // 2))
-    assert counts() == {"fwd": 0, "bwd": 0, "plain": 1}
+    assert counts() == _counts(plain=1)
 
 
 @pytest.mark.cuda
@@ -372,7 +542,7 @@ def test_float32_on_the_card_never_reaches_conv2d(cuda, counts, case):
     x, w, b, padding = _bad_args(cuda)[case]
     with pytest.raises(ValueError, match="block_conv"):
         BC.block_conv2d(x, w, b, padding=padding)
-    assert counts() == {"fwd": 0, "bwd": 0, "plain": 0}
+    assert counts() == _counts()
 
 
 @pytest.mark.cuda
@@ -384,6 +554,134 @@ def test_one_biggan_step_runs_every_genblock_conv_on_the_kernel(cuda, counts):
     model(z, c, 1.0).square().mean().backward()
     torch.cuda.synchronize()
     blocks = len(B.BIGGAN_CONFIGS[VERSION]["layers"])
-    assert counts() == {"fwd": 4 * blocks, "bwd": 4 * blocks, "plain": 0}
+    assert counts() == _counts(fwd=4 * blocks, bwd=4 * blocks)
     assert 4 * blocks == 48
+    assert torch.isfinite(z.grad).all()
+
+
+def _check_by_rows(got, want_rows, rows):
+    """``got`` against float64 references computed ``rows`` images at a
+    time (``want_rows(i, j)``), at the kernel's tolerance: (ok, max error)."""
+    ok, worst = True, 0.0
+    for i in range(0, got.shape[0], rows):
+        chunk_ok, err = _close(got[i:i + rows], want_rows(i, i + rows))
+        ok, worst = ok and chunk_ok, max(worst, err)
+    return ok, worst
+
+
+def _modulated_matches(up, x_shape, w_shape, device, seed=0):
+    """``modulated_conv2d`` on the kernel, forward and input gradient,
+    against float64 ``F.conv2d`` or ``F.conv_transpose2d`` (rows in chunks
+    that keep the float64 copies small)."""
+    n, cin, h, w = x_shape
+    if up:
+        x, wt, g = _up_case(x_shape, w_shape[0], dtype=torch.float32,
+                            device=device, seed=seed)
+    else:
+        x, wt, _, g = _conv_case(x_shape, w_shape, dtype=torch.float32,
+                                 device=device, bias=False, seed=seed)
+    weight = torch.nn.Parameter(wt * (cin * 9) ** 0.5, requires_grad=False)
+    scale = 1.0 / (cin * 9) ** 0.5
+    xk = x.clone().requires_grad_(True)
+    y = BC.modulated_conv2d(xk, weight, scale, weight * scale, up=up)
+    y.backward(g)
+    w64 = (weight * scale).double()
+    rows = max(1, (1 << 27) // max(y[0].numel(), x[0].numel()))
+
+    def reference(i, j):
+        xd = x[i:j].double().requires_grad_(True)
+        yd = (F.conv_transpose2d(xd, w64.transpose(0, 1), stride=2) if up
+              else F.conv2d(xd, w64, padding=1))
+        yd.backward(g[i:j].double())
+        return yd.detach(), xd.grad
+
+    ok_y, err_y = _check_by_rows(y.detach(), lambda i, j: reference(i, j)[0],
+                                 rows)
+    ok_x, err_x = _check_by_rows(xk.grad, lambda i, j: reference(i, j)[1],
+                                 rows)
+    assert ok_y and ok_x, (up, x_shape, w_shape, err_y, err_x)
+    return y.detach(), xk.grad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("index", range(len(SG2_SHAPES)))
+def test_kernel_matches_at_stylegan2_shapes(cuda, counts, index):
+    """Every modulated 3x3 and up-convolution of cars-512 (the first 15)
+    and FFHQ-1024 at 22 rows."""
+    _, up, x_shape, w_shape = SG2_SHAPES[index]
+    _modulated_matches(up, x_shape, w_shape, cuda)
+    key = "up_" if up else ""
+    assert counts() == _counts(**{key + "fwd": 1, key + "bwd": 1})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_shape,cout", [
+    ((2, 40, 5, 7), 24), ((1, 33, 1, 1), 17), ((3, 96, 9, 6), 72),
+    ((5, 520, 4, 4), 512),                # K split 8 (up) and 16 ways
+    ((2, 130, 5, 7), 24),                 # the tall tile, M ragged (130)
+    ((4, 64, 20, 20), 32), ((2, 32, 33, 17), 32),     # the thin tile
+    ((2, 8, 3, 2), 5)])
+@pytest.mark.parametrize("up", [False, True])
+def test_modulated_kernel_matches_at_ragged_shapes(cuda, x_shape, cout, up):
+    _modulated_matches(up, x_shape, (cout, x_shape[1], 3, 3), cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("index", [0, 1, 6, 12, 14, 15])
+def test_modulated_kernel_is_deterministic(cuda, index):
+    _, up, x_shape, w_shape = SG2_SHAPES[index]
+    x_shape = (min(x_shape[0], 4),) + tuple(x_shape[1:])
+    first = _modulated_matches(up, x_shape, w_shape, cuda)
+    second = _modulated_matches(up, x_shape, w_shape, cuda)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("up", [False, True])
+def test_modulated_weight_that_asks_for_a_gradient_raises(cuda, counts, up):
+    x = torch.zeros(2, 16, 6, 6, device=cuda)
+    weight = torch.nn.Parameter(torch.zeros(8, 16, 3, 3, device=cuda))
+    with pytest.raises(RuntimeError, match="no weight or bias gradient"):
+        BC.modulated_conv2d(x, weight, 0.1, weight * 0.1, up=up)
+    with pytest.raises(ValueError, match="block_conv"):
+        BC.modulated_conv2d(x, weight, 0.1, (weight * 0.1).double(), up=up)
+    assert counts() == _counts()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("up", [False, True])
+def test_modulated_bf16_and_pairs_on_the_card_reach_f_conv(cuda, counts, up):
+    for dtype, packed in ((torch.bfloat16, False), (torch.float32, True)):
+        conv = S.ModulatedConv(8, 6, up=up, dtype=dtype, packed=packed).to(cuda)
+        conv.requires_grad_(False)
+        with torch.no_grad():
+            conv.weight.normal_()
+        x = torch.randn(2 if packed else 4, 16 if packed else 8, 5, 5,
+                        device=cuda)
+        style = torch.randn(4, S.STYLE_DIM, device=cuda)
+        BC.reset_launch_counts()
+        got = conv(x, style, packed)
+        assert torch.equal(got, _modconv_by_f_conv(conv, x, style, packed))
+        assert counts() == _counts(plain=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model,remat,want", [
+    ("cars", 0, _counts(fwd=8, bwd=8, up_fwd=7, up_bwd=7, plain=8)),
+    # the recompute from 256 px runs the 256, 512 and 1024 px up-convs,
+    # convs and ToRGBs forward once more
+    ("ffhq", 256, _counts(fwd=9 + 3, bwd=9, up_fwd=8 + 3, up_bwd=8,
+                          plain=9 + 3))])
+def test_one_stylegan2_step_runs_every_3x3_on_the_kernel(cuda, counts, model,
+                                                         remat, want):
+    """One float32 step (forward and backward) of the generators as the
+    benchmark's problems build them (K2 and K3 on): every modulated 3x3 and
+    up-convolution on the kernel, only the ToRGBs' 1x1s on ``F.conv2d``."""
+    m = S.StyleGAN2(model, init="equalized", fused_mod_bwd=True,
+                    fir_kernel=True, remat_from_res=remat, device=cuda)
+    z = torch.randn(2, S.STYLE_DIM, device=cuda, requires_grad=True)
+    BC.reset_launch_counts()
+    m(z).square().mean().backward()
+    torch.cuda.synchronize()
+    assert counts() == want
     assert torch.isfinite(z.grad).all()
