@@ -282,8 +282,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    images and losses and the tracked z and c), finite tell losses and the
    final loss below generation 0's. Then one generation (4 inner steps and
    the tell) of the same problem from one seed twice, on the mesh and
-   without one, under PyTorch's deterministic algorithms (as
-   ``utils/flagship.compare_drivers``): the tell losses within rel 1e-6.
+   without one, under PyTorch's deterministic algorithms: the tell losses
+   within rel 1e-6.
    Prints images/s and peak memory; the process group is destroyed
    whatever happens.
 
@@ -432,8 +432,8 @@ PACK_REPS = 10
 # where the K2 and K3 launches of the kernels line come from: the model's
 # loader in each phase
 LAUNCHED_BY = {
-    "main": "sg2_path (utils/flagship.build_stylegan2)",
-    "ffhq_path": "ffhq_path (utils/flagship.build_ffhq)",
+    "main": "sg2_path (chip_smoke._build_stylegan2)",
+    "ffhq_path": "ffhq_path (chip_smoke._build_ffhq)",
     "cars_ng": ("cars_ng_path (examples/common.load_stylegan2, the cars "
                 "entry points' loader)")}
 
@@ -1139,6 +1139,106 @@ def phase_kernels():
     return cases
 
 
+# the one-card memory recipe of examples/invert_stylegan2_ffhq_basincma.py:
+# synthesis blocks from 256 px recomputed in the backward, the population
+# in microbatches of 2
+FFHQ_RECIPE = {"remat_from_res": 256, "max_batch_size": 2}
+
+
+def _ramp_target(res):
+    """``bench.py``'s target, [res, res, 3] in [-1, 1]: a ramp keeps both
+    loss terms active."""
+    import numpy as np
+    yy, xx = np.mgrid[0:res, 0:res].astype(np.float32) / (res - 1)
+    return np.stack([xx, yy, 0.5 * (xx + yy)], axis=-1) * 2.0 - 1.0
+
+
+def _build_biggan(dtype, device, res=256, seed=0):
+    """(model, loss_fn, var_manager) of ``main_path``'s problem: the ramp
+    through BigGAN-deep-``res`` under ProjectionLoss (masked L1 + 10 x
+    LPIPS-alex), z searched by CMA (Clamp hook at 2.0, lr 0.05), the class
+    embedding c by Adam (lr 0.01); random weights from ``seed``."""
+    import warnings
+
+    import numpy as np
+
+    import pix2latent_tpu_torch.loss_functions as LF
+    from pix2latent_tpu_torch import VariableManager, distribution, hooks
+    from pix2latent_tpu_torch.models.biggan import BigGAN
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")       # random-init notices
+        model = BigGAN(f"biggan-deep-{res}", dtype=dtype, seed=seed,
+                       device=device)
+        loss_fn = LF.ProjectionLoss(lpips_net="alex", beta=10.0, dtype=dtype,
+                                    device=device)
+    vm = VariableManager(seed=seed, device=device)
+    vm.register("z", shape=(128,), var_type="input", grad_free=True,
+                distribution=distribution.TruncatedNormalModulo(
+                    sigma=1.0, trunc=2.0),
+                learning_rate=0.05, hook_fn=hooks.Clamp(2.0))
+    vm.register("c", shape=(128,), var_type="input", learning_rate=0.01,
+                default=np.zeros((128,), np.float32))
+    vm.register("target", shape=(res, res, 3), var_type="output",
+                requires_grad=False, default=_ramp_target(res))
+    vm.register("weight", shape=(res, res, 3), var_type="output",
+                requires_grad=False, default=np.ones((res, res, 3), np.float32))
+    return model, loss_fn, vm
+
+
+def _build_stylegan2(dtype, device, seed=0, model="cars", remat_from_res=0):
+    """(model, loss_fn, var_manager) of the StyleGAN2 problem of ``model``
+    (``"cars"``: 512 px with the border mask, ``"ffhq"``: 1024 px): the ramp
+    under the same loss, z searched by CMA (Normalize + NormalPerturb(0.05)
+    hook, lr 0.05), both hand-written StyleGAN2 kernels on, synthesis
+    blocks from ``remat_from_res`` recomputed in the backward.
+
+    The weights are random from ``seed`` with the ``equalized`` scheme of
+    ``models/stylegan2.py:_random_init_``: under the JAX package's own
+    random init the image does not depend on z, so the search could not
+    lower the loss."""
+    import warnings
+
+    import numpy as np
+
+    import pix2latent_tpu_torch.loss_functions as LF
+    from pix2latent_tpu_torch import VariableManager, hooks
+    from pix2latent_tpu_torch.examples.common import cars_loss_mask
+    from pix2latent_tpu_torch.models.stylegan2 import StyleGAN2
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")       # random-init notices
+        net = StyleGAN2(model, search="z", dtype=dtype, seed=seed,
+                        fused_mod_bwd=True, fir_kernel=True,
+                        remat_from_res=remat_from_res, init="equalized",
+                        device=device)
+        loss_fn = LF.ProjectionLoss(lpips_net="alex", beta=10.0, dtype=dtype,
+                                    device=device)
+    res = net.im_res
+    vm = VariableManager(seed=seed, device=device)
+    vm.register("z", shape=(512,), var_type="input", grad_free=True,
+                learning_rate=0.05,
+                hook_fn=hooks.Compose(hooks.Normalize(),
+                                      hooks.NormalPerturb(0.05)))
+    vm.register("target", shape=(res, res, 3), var_type="output",
+                requires_grad=False, default=_ramp_target(res))
+    vm.register("weight", shape=(res, res, 3), var_type="output",
+                requires_grad=False, default=np.ones((res, res, 3), np.float32))
+    mask = cars_loss_mask(res, model)
+    if mask is not None:
+        vm.register("loss_mask", shape=(res, res, 3), var_type="output",
+                    requires_grad=False, default=mask)
+    return net, loss_fn, vm
+
+
+def _build_ffhq(dtype, device, seed=0):
+    """(model, loss_fn, var_manager) of ``ffhq_path``'s problem, with the
+    recipe's ``remat_from_res`` (its ``max_batch_size`` belongs to the
+    optimizer)."""
+    return _build_stylegan2(dtype, device, seed, model="ffhq",
+                            remat_from_res=FFHQ_RECIPE["remat_from_res"])
+
+
 def phase_main_path(generations, final_steps):
     import math
 
@@ -1146,9 +1246,8 @@ def phase_main_path(generations, final_steps):
     from pix2latent_tpu_torch.ops import attention as A
     from pix2latent_tpu_torch.ops import block_conv as BC
     from pix2latent_tpu_torch.optimizers import BasinCMAOptimizer
-    from pix2latent_tpu_torch.utils.flagship import build
 
-    model, loss_fn, vm = build(torch.bfloat16, "cuda")
+    model, loss_fn, vm = _build_biggan(torch.bfloat16, "cuda")
     opt = BasinCMAOptimizer(model, vm, loss_fn, seed=0, device="cuda")
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
@@ -1237,13 +1336,12 @@ def _whole_step(phase, builder, inputs):
 
 def phase_whole_step():
     import torch
-    from pix2latent_tpu_torch.utils.flagship import build
 
     gen = torch.Generator(device="cpu")
     gen.manual_seed(1)
     z = torch.fmod(torch.randn(2, 128, generator=gen), 2.0)
     c = 0.1 * torch.randn(2, 128, generator=gen)
-    _whole_step("whole_step", build, {"z": z, "c": c})
+    _whole_step("whole_step", _build_biggan, {"z": z, "c": c})
 
 
 def phase_sg2_path(generations, final_steps):
@@ -1253,9 +1351,8 @@ def phase_sg2_path(generations, final_steps):
     from pix2latent_tpu_torch.ops import fir_blur as FB
     from pix2latent_tpu_torch.ops import mod_backward as MB
     from pix2latent_tpu_torch.optimizers import BasinCMAOptimizer
-    from pix2latent_tpu_torch.utils.flagship import build_stylegan2
 
-    model, loss_fn, vm = build_stylegan2(torch.bfloat16, "cuda")
+    model, loss_fn, vm = _build_stylegan2(torch.bfloat16, "cuda")
     opt = BasinCMAOptimizer(model, vm, loss_fn, seed=0, device="cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1311,11 +1408,10 @@ def phase_sg2_path(generations, final_steps):
 
 def phase_sg2_whole_step():
     import torch
-    from pix2latent_tpu_torch.utils.flagship import build_stylegan2
 
     gen = torch.Generator(device="cpu")
     gen.manual_seed(1)
-    _whole_step("sg2_whole_step", build_stylegan2,
+    _whole_step("sg2_whole_step", _build_stylegan2,
                 {"z": torch.randn(2, 512, generator=gen)})
 
 
@@ -1421,10 +1517,9 @@ def phase_ffhq_path(generations, final_steps):
     from pix2latent_tpu_torch.ops import fir_blur as FB
     from pix2latent_tpu_torch.ops import mod_backward as MB
     from pix2latent_tpu_torch.optimizers import BasinCMAOptimizer
-    from pix2latent_tpu_torch.utils.flagship import FFHQ_RECIPE, build_ffhq
 
     def make_opt():
-        model, loss_fn, vm = build_ffhq(torch.bfloat16, "cuda")
+        model, loss_fn, vm = _build_ffhq(torch.bfloat16, "cuda")
         opt = BasinCMAOptimizer(model, vm, loss_fn, seed=0, device="cuda",
                                 max_batch_size=FFHQ_RECIPE["max_batch_size"])
         return model, opt
@@ -1522,11 +1617,10 @@ def phase_ffhq_path(generations, final_steps):
 
 def phase_ffhq_whole_step():
     import torch
-    from pix2latent_tpu_torch.utils.flagship import build_ffhq
 
     gen = torch.Generator(device="cpu")
     gen.manual_seed(1)
-    _whole_step("ffhq_whole_step", build_ffhq,
+    _whole_step("ffhq_whole_step", _build_ffhq,
                 {"z": torch.randn(2, 512, generator=gen)})
 
 
@@ -2939,9 +3033,8 @@ def _free_port():
 def _sharded_vs_plain(opt, steps):
     """One generation (``steps`` inner steps and the tell) of ``opt``'s
     problem from seed 0, on a mesh of this process group and without one,
-    under PyTorch's deterministic algorithms (the setting of
-    ``utils/flagship.compare_drivers``, restored after): the two tell
-    losses."""
+    under PyTorch's deterministic algorithms (restored after): the two
+    tell losses."""
     import torch
     from pix2latent_tpu_torch.optimizers import BasinCMAOptimizer
     from pix2latent_tpu_torch.parallel import make_mesh

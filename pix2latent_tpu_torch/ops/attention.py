@@ -26,7 +26,16 @@ import ctypes
 
 import torch
 
+from pix2latent_tpu_torch.utils.cuda_build import load, ptr, stream
+
 SOURCE = "sagan_attention.cu"
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# the C entries of SOURCE: {entry: (restype, argtypes)}
+SIGNATURES = {
+    "sagan_attention_fwd": (_I, [_P] * 6 + [_I] * 6 + [_P]),
+    "sagan_attention_bwd": (_I, [_P] * 12 + [_I] * 6 + [_P]),
+    "sagan_attention_work": (_I, [_I] * 6 + [_P]),
+}
 MAX_D = 128
 MAX_DV = 512
 
@@ -40,21 +49,6 @@ def sagan_attention_reference(theta, phi, g):
     s = torch.einsum("nqc,nkc->nqk", theta.float(), phi.float())
     p = torch.softmax(s, dim=-1).to(g.dtype)
     return torch.einsum("nqk,nkc->nqc", p.float(), g.float()).to(g.dtype)
-
-
-def _lib():
-    from pix2latent_tpu_torch.utils.cuda_build import load
-    lib = load(SOURCE)
-    if not getattr(lib, "_argtypes_set", False):
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.sagan_attention_fwd.argtypes = [p] * 6 + [i] * 6 + [p]
-        lib.sagan_attention_fwd.restype = i
-        lib.sagan_attention_bwd.argtypes = [p] * 12 + [i] * 6 + [p]
-        lib.sagan_attention_bwd.restype = i
-        lib.sagan_attention_work.argtypes = [i] * 6 + [p]
-        lib.sagan_attention_work.restype = i
-        lib._argtypes_set = True
-    return lib
 
 
 def _check(theta, phi, g):
@@ -92,14 +86,6 @@ def _raise_on(err: int, what: str):
                            f"cudaError {err}")
 
 
-def _stream(t):
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
-
-
-def _ptr(t):
-    return ctypes.c_void_p(t.data_ptr())
-
-
 def kernel_forward(theta, phi, g):
     """One launch of the forward kernel: ``(o, m, l)`` with the f32 row max
     and row sum of exp(s - m) that the backward reuses."""
@@ -110,9 +96,9 @@ def kernel_forward(theta, phi, g):
     m = torch.empty((n, q), dtype=torch.float32, device=theta.device)
     l = torch.empty((n, q), dtype=torch.float32, device=theta.device)
     with torch.cuda.device(theta.device):
-        err = _lib().sagan_attention_fwd(
-            _ptr(theta), _ptr(phi), _ptr(g), _ptr(o), _ptr(m), _ptr(l),
-            n, q, k, d, dv, int(theta.dtype == torch.bfloat16), _stream(theta))
+        err = load(SOURCE, SIGNATURES).sagan_attention_fwd(
+            ptr(theta), ptr(phi), ptr(g), ptr(o), ptr(m), ptr(l),
+            n, q, k, d, dv, int(theta.dtype == torch.bfloat16), stream(theta))
     _raise_on(err, "forward")
     SaganAttentionFunction.fwd_launches += 1
     return o, m, l
@@ -139,12 +125,12 @@ def kernel_backward(theta, phi, g, do, o, m, l):
     ds = None if theta.dtype == torch.bfloat16 else torch.empty(
         (n, k, q), dtype=torch.float32, device=theta.device)
     with torch.cuda.device(theta.device):
-        err = _lib().sagan_attention_bwd(
-            _ptr(theta), _ptr(phi), _ptr(g), _ptr(do), _ptr(o), _ptr(m),
-            _ptr(l), _ptr(delta),
-            ctypes.c_void_p(None) if ds is None else _ptr(ds),
-            _ptr(dtheta), _ptr(dphi), _ptr(dg),
-            n, q, k, d, dv, int(theta.dtype == torch.bfloat16), _stream(theta))
+        err = load(SOURCE, SIGNATURES).sagan_attention_bwd(
+            ptr(theta), ptr(phi), ptr(g), ptr(do), ptr(o), ptr(m),
+            ptr(l), ptr(delta),
+            ctypes.c_void_p(None) if ds is None else ptr(ds),
+            ptr(dtheta), ptr(dphi), ptr(dg),
+            n, q, k, d, dv, int(theta.dtype == torch.bfloat16), stream(theta))
     _raise_on(err, "backward")
     SaganAttentionFunction.bwd_launches += 1
     return dtheta, dphi, dg
@@ -156,8 +142,8 @@ def kernel_work(n, q, k, d, dv, dtype):
     its own tiles; in float32 tensor-core FLOPs, each product three times
     (3xTF32). Launches nothing."""
     work = (ctypes.c_double * 2)()
-    err = _lib().sagan_attention_work(n, q, k, d, dv,
-                                      int(dtype == torch.bfloat16), work)
+    err = load(SOURCE, SIGNATURES).sagan_attention_work(
+        n, q, k, d, dv, int(dtype == torch.bfloat16), work)
     if err != 0:
         raise ValueError(f"sagan_attention: the kernel does not take n={n} "
                          f"q={q} k={k} d={d} dv={dv}")

@@ -66,7 +66,13 @@ import torch
 import torch.nn.functional as F
 from torch.utils.weak import WeakIdKeyDictionary
 
+from pix2latent_tpu_torch.utils.cuda_build import load
+
 SOURCE = "block_conv.cu"
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# the C entries of SOURCE: {entry: (restype, argtypes)}
+SIGNATURES = {"block_conv": (_I, [_P] * 5 + [_I] * 9 + [_P]),
+              "block_conv_splits": (_I, [_I] * 7)}
 BK = 32    # the packed layout's channel block: the kernel's K tile (kBK)
 SAME, UP, UP_GRAD = 0, 1, 2     # the kernel's routes (its enum Route)
 # The up route's phases (a, b) in order, each with its taps (ky, kx) in the
@@ -202,30 +208,14 @@ def packed_conv_reference(x, packed, bias, ksize, route=SAME):
     return y
 
 
-_LIB = None
-
-
-def _lib():
-    global _LIB
-    if _LIB is None:
-        from pix2latent_tpu_torch.utils.cuda_build import load
-        lib = load(SOURCE)
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.block_conv.argtypes = [p] * 5 + [i] * 9 + [p]
-        lib.block_conv.restype = i
-        lib.block_conv_splits.argtypes = [i] * 7
-        lib.block_conv_splits.restype = i
-        _LIB = lib
-    return _LIB
-
-
 @functools.lru_cache(maxsize=None)
 def kernel_splits(n, cin_pad, h, w, cout, ksize, route=SAME):
     """The splits of K the kernel runs on ``route`` for ``x [n, cin, h, w]``
     (``UP_GRAD``: the gradient of an h x w plane's up-convolution) by a
     weight packed to ``[2, cout, ksize**2, cin_pad]`` (1: none; 0: a shape
     it refuses), as the source's plan picks them from the shape."""
-    return _lib().block_conv_splits(n, cin_pad, h, w, cout, ksize, route)
+    return load(SOURCE, SIGNATURES).block_conv_splits(n, cin_pad, h, w, cout,
+                                                      ksize, route)
 
 
 def _launch(x, packed, bias, ksize, route=SAME):
@@ -240,7 +230,7 @@ def _launch(x, packed, bias, ksize, route=SAME):
     ws = (torch.empty(splits * y.numel(), dtype=x.dtype, device=x.device)
           if splits > 1 else None)
     dev = x.get_device()
-    err = _lib().block_conv(
+    err = load(SOURCE, SIGNATURES).block_conv(
         x.data_ptr(), packed.data_ptr(),
         bias.data_ptr() if bias is not None else None, y.data_ptr(),
         ws.data_ptr() if ws is not None else None, n, cin, cin_pad, h, w,

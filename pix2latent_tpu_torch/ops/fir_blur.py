@@ -23,7 +23,16 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from pix2latent_tpu_torch.utils.cuda_build import load, ptr, stream
+
 SOURCE = "fir_blur.cu"
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# the C entries of SOURCE: {entry: (restype, argtypes)}
+SIGNATURES = {
+    "fir_blur": (_I, [_P, _P, ctypes.POINTER(ctypes.c_float)] + [_I] * 8
+                 + [_P]),
+    "fir_blur_work": (_I, [_I] * 8 + [ctypes.POINTER(ctypes.c_double)]),
+}
 MAX_TAPS = 8
 
 
@@ -70,20 +79,6 @@ def adjoint(taps, pad):
     return tuple(reversed(taps)), (k - 1 - pad[0], k - 1 - pad[1])
 
 
-def _lib():
-    from pix2latent_tpu_torch.utils.cuda_build import load
-    lib = load(SOURCE)
-    if not getattr(lib, "_argtypes_set", False):
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.fir_blur.argtypes = ([p, p, ctypes.POINTER(ctypes.c_float)]
-                                 + [i] * 8 + [p])
-        lib.fir_blur.restype = i
-        lib.fir_blur_work.argtypes = [i] * 8 + [ctypes.POINTER(ctypes.c_double)]
-        lib.fir_blur_work.restype = i
-        lib._argtypes_set = True
-    return lib
-
-
 def _check(x, taps, pad):
     """Raise on anything the kernel does not take."""
     if x.device.type != "cuda":
@@ -121,10 +116,9 @@ def _launch(x, taps, pad):
     y = torch.empty((n, c, ho, wo), dtype=x.dtype, device=x.device)
     t = (ctypes.c_float * k)(*taps)
     with torch.cuda.device(x.device):
-        err = _lib().fir_blur(
-            ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(y.data_ptr()), t, k,
-            n * c, h, w, ho, wo, pad[0], int(x.dtype == torch.bfloat16),
-            ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
+        err = load(SOURCE, SIGNATURES).fir_blur(
+            ptr(x), ptr(y), t, k, n * c, h, w, ho, wo, pad[0],
+            int(x.dtype == torch.bfloat16), stream(x))
     if err != 0:
         raise RuntimeError(f"fir_blur kernel launch failed: cudaError {err}")
     return y
@@ -145,8 +139,9 @@ def kernel_work(shape, k, pad, dtype):
     ho, wo = _out_shape(shape, k, pad)
     n, c, h, w = shape
     out = ctypes.c_double()
-    err = _lib().fir_blur_work(k, n * c, h, w, ho, wo, pad[0],
-                               int(dtype == torch.bfloat16), ctypes.byref(out))
+    err = load(SOURCE, SIGNATURES).fir_blur_work(
+        k, n * c, h, w, ho, wo, pad[0], int(dtype == torch.bfloat16),
+        ctypes.byref(out))
     if err != 0:
         raise RuntimeError(f"fir_blur_work failed: cudaError {err}")
     return out.value

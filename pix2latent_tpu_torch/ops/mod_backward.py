@@ -33,7 +33,12 @@ import ctypes
 
 import torch
 
+from pix2latent_tpu_torch.utils.cuda_build import load, ptr, stream
+
 SOURCE = "mod_backward.cu"
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# the C entries of SOURCE: {entry: (restype, argtypes)}
+SIGNATURES = {"mod_backward": (_I, [_P] * 5 + [_I] * 6 + [_P])}
 SMS = 132              # an H100 SXM's streaming multiprocessors
 MAX_SPLITS = 8         # blocks of a plane: one portable cluster
 MIN_BLOCK_ELEMENTS = 16 * 1024
@@ -87,17 +92,6 @@ def plan_ranges(hw, splits, vec):
             for r in range(splits)]
 
 
-def _lib():
-    from pix2latent_tpu_torch.utils.cuda_build import load
-    lib = load(SOURCE)
-    if not getattr(lib, "_argtypes_set", False):
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.mod_backward.argtypes = [p] * 5 + [i] * 6 + [p]
-        lib.mod_backward.restype = i
-        lib._argtypes_set = True
-    return lib
-
-
 def _check(g, x, s):
     """Raise on anything the kernel does not take."""
     ts = (g, x, s)
@@ -135,10 +129,9 @@ def kernel_mod_backward(g, x, s):
                                              itemsize=g.element_size(),
                                              aligned=aligned)
     with torch.cuda.device(g.device):
-        err = _lib().mod_backward(
-            *(ctypes.c_void_p(t.data_ptr()) for t in (g, x, s, gx, gs)),
-            n * c, h * w, int(g.dtype == torch.bfloat16), splits, threads,
-            vec, ctypes.c_void_p(torch.cuda.current_stream(g.device).cuda_stream))
+        err = load(SOURCE, SIGNATURES).mod_backward(
+            *map(ptr, (g, x, s, gx, gs)), n * c, h * w,
+            int(g.dtype == torch.bfloat16), splits, threads, vec, stream(g))
     if err != 0:
         raise RuntimeError(f"mod_backward kernel launch failed: cudaError {err}")
     ModulateFunction.launches += 1

@@ -6,6 +6,13 @@ cached under ``pix2latent_tpu_torch/_build/`` by a hash of the source and the
 flags. Nothing here runs at import time; the CPU paths never call it. Each
 build is logged at INFO level on this module's logger
 (``utils/profiling.log_compiles`` prints them).
+
+Each ``ops/`` module that launches a kernel declares the C entries of its
+source once, as ``SIGNATURES = {entry: (restype, argtypes)}`` beside its
+``SOURCE``; :func:`load` applies them when it first loads the library, and
+``tests/test_torch_kernel_bindings.py`` holds them against the source's
+``extern "C"`` block. :func:`ptr` and :func:`stream` give a tensor's
+address and its card's current stream as the entries take them.
 """
 
 from __future__ import annotations
@@ -19,7 +26,9 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Sequence, Tuple
+
+import torch
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -98,14 +107,29 @@ def build(sources: Iterable[str]) -> Dict[str, dict]:
     return report
 
 
-def load(source: str) -> ctypes.CDLL:
-    """The ctypes library for ``csrc/<source>``, built on first use."""
+def load(source: str,
+         signatures: Dict[str, Tuple[type, Sequence[type]]]) -> ctypes.CDLL:
+    """The ctypes library for ``csrc/<source>``, built on first use, with
+    ``signatures`` (``{entry: (restype, argtypes)}``) set on its entries."""
     lib = _loaded.get(source)
     if lib is None:
         build([source])
         lib = ctypes.CDLL(str(library_path(source)))
+        for entry, (restype, argtypes) in signatures.items():
+            fn = getattr(lib, entry)
+            fn.restype, fn.argtypes = restype, argtypes
         _loaded[source] = lib
     return lib
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    """``t``'s device address, for a ``void*`` parameter."""
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream(t: torch.Tensor) -> ctypes.c_void_p:
+    """The current stream of ``t``'s card, the entries' last parameter."""
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
 def all_sources():

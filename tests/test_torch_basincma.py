@@ -159,7 +159,7 @@ def test_port_imports_nothing_of_jax():
     assert {f"pix2latent_tpu_torch/{m}.py" for m in (
         "ops/upfirdn2d", "ops/fir_blur", "ops/mod_backward",
         "models/stylegan2", "optimizers/gradient", "optimizers/cma_optimizer",
-        "utils/params_io", "utils/flagship", "core/step",
+        "utils/params_io", "core/step",
         "transform/spatial", "transform/transform_optimizer",
         "ops/affine_matmul", "ops/grid_sample", "strategies/registry",
         "strategies/lmmaes", "strategies/host", "optimizers/ng_base",

@@ -36,12 +36,12 @@ from pix2latent_tpu.optimizers import GradientOptimizer as JaxGradient
 from pix2latent_tpu.utils.params_io import _flatten
 from pix2latent_tpu_torch import VariableManager, hooks
 from pix2latent_tpu_torch.core.step import ExecutionCore, chunk_spec
+from pix2latent_tpu_torch.examples.common import cars_loss_mask
 from pix2latent_tpu_torch.models.toy import ToyGenerator
 from pix2latent_tpu_torch.ops import fir_blur as FB
 from pix2latent_tpu_torch.ops import mod_backward as MB
 from pix2latent_tpu_torch.optimizers import (BasinCMAOptimizer, CMAOptimizer,
                                              GradientOptimizer)
-from pix2latent_tpu_torch.utils.flagship import cars_loss_mask
 from pix2latent_tpu_torch.utils.params_io import from_jax_params
 from test_torch_stylegan2 import Pair
 
